@@ -1,8 +1,9 @@
 """Engine configuration of the PyTorch port.
 
 Counterpart of ``sortx/config.py``, carrying only the fields the port
-reads. The TPU tuning fields (radix width, hybrid engine, distributed
-exchange, interpret and profiling switches) have no reader here.
+reads. The TPU tuning fields (radix width, network block size, DMA
+depth, the "auto" engine's size floor, distributed exchange, interpret
+and profiling switches) have no reader here.
 """
 
 from __future__ import annotations
@@ -22,11 +23,21 @@ class Config:
     """Tuning knobs for the sort/scan engines.
 
     engine: "network" runs the bitonic network on the hand-written CUDA
-      kernels (their plain PyTorch versions for CPU tensors); "host" runs
-      the stable ``torch.sort`` engine; "auto" picks the network for CUDA
-      tensors and the host engine for CPU tensors.
+      kernels (their plain PyTorch versions for CPU tensors); "hybrid"
+      runs the sample-sort engine (row-network phases and the run mover,
+      ops/sort_hybrid.py); "host" runs the stable ``torch.sort`` engine;
+      "auto" picks the network for CUDA tensors and the host engine for
+      CPU tensors.
     scan_tile_elems: elements one CTA of the scan kernels covers (a
       multiple of the 1024-thread CTA).
+    sort_tile_elems: the histogram's tile, as in ``sortx`` (clamped to
+      8..2048 rows of 128 elements).
+    engine_tile_elems, engine_buckets, engine_headroom,
+    engine_chunk_elems: the hybrid's phase-A tile target, bucket count
+      (0 = by size), bucket capacity over the mean, and mover chunk.
+    engine_phase_sort: the hybrid's row sorter, "bitonic" (the row
+      network) or "host" (``torch.sort`` along the rows; ``sortx``'s
+      "xla").
 
     The bitonic network's block size is not a field: its output does not
     depend on it, and ``LOG_BLOCK_MAX`` caps it.
@@ -34,17 +45,33 @@ class Config:
 
     engine: str = "auto"
     scan_tile_elems: int = 1 << 13
+    sort_tile_elems: int = 1 << 14
+    engine_tile_elems: int = 1 << 21
+    engine_buckets: int = 0
+    engine_headroom: float = 1.10
+    engine_chunk_elems: int = 1 << 14
+    engine_phase_sort: str = "bitonic"
 
     def __post_init__(self):
-        if self.engine not in ("auto", "network", "host"):
-            raise ValueError("engine must be auto|network|host")
-        if self.scan_tile_elems <= 0 or self.scan_tile_elems % 1024:
-            raise ValueError("scan_tile_elems must be a positive multiple "
-                             "of 1024")
+        if self.engine not in ("auto", "network", "hybrid", "host"):
+            raise ValueError("engine must be auto|network|hybrid|host")
+        for name in ("scan_tile_elems", "sort_tile_elems",
+                     "engine_chunk_elems"):
+            v = getattr(self, name)
+            if v <= 0 or v % 1024:
+                raise ValueError(f"{name} must be a positive multiple of "
+                                 "1024")
+        if self.engine_tile_elems <= 0 or self.engine_buckets < 0:
+            raise ValueError("engine_tile_elems must be positive and "
+                             "engine_buckets non-negative")
+        if self.engine_headroom < 1.0:
+            raise ValueError("engine_headroom must be >= 1.0")
+        if self.engine_phase_sort not in ("bitonic", "host"):
+            raise ValueError("engine_phase_sort must be bitonic|host")
 
 
 def resolve_engine(cfg: Config, t) -> str:
-    """"network" or "host" for tensor ``t`` under ``cfg``."""
+    """"network", "hybrid" or "host" for tensor ``t`` under ``cfg``."""
     if cfg.engine != "auto":
         return cfg.engine
     return "network" if t.device.type == "cuda" else "host"

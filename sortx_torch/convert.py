@@ -52,18 +52,23 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
-_ENGINES = {"auto": "auto", "pallas": "network", "host": "host"}
+_ENGINES = {"auto": "auto", "pallas": "network", "hybrid": "hybrid",
+            "host": "host"}
+_PHASE_SORTS = {"bitonic": "bitonic", "xla": "host"}
 
 
 def config_from_sortx(cfg) -> Config:
     """The port's ``Config`` for a ``sortx.Config`` (read by attribute).
 
-    engine "pallas" maps to "network". The TPU block size has no
-    counterpart: the network's output does not depend on it. The hybrid
-    engine is not ported yet.
+    engine "pallas" maps to "network", the hybrid's phase sorter "xla"
+    to "host". The TPU block size, DMA depth and the "auto" engine's
+    size floor have no counterpart: the outputs do not depend on them.
     """
-    if cfg.engine not in _ENGINES:
-        raise NotImplementedError(
-            f"engine {cfg.engine!r} is not ported (ROADMAP Queue 1 item 14)")
     return Config(engine=_ENGINES[cfg.engine],
-                  scan_tile_elems=cfg.scan_tile_elems)
+                  scan_tile_elems=cfg.scan_tile_elems,
+                  sort_tile_elems=cfg.sort_tile_elems,
+                  engine_tile_elems=cfg.engine_tile_elems,
+                  engine_buckets=cfg.engine_buckets,
+                  engine_headroom=cfg.engine_headroom,
+                  engine_chunk_elems=cfg.engine_chunk_elems,
+                  engine_phase_sort=_PHASE_SORTS[cfg.engine_phase_sort])

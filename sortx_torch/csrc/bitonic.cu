@@ -13,6 +13,16 @@
 // so a tied pair never moves in either direction. The output therefore
 // does not depend on how the layers are split into passes.
 //
+// Rows mode (the row_log / force_asc options of the TPU kernels): the
+// buffer is rows of 2^R elements, each sorted ascending on its own.
+// Exchanges at distance < 2^R never cross a row, so the network only
+// stops at stage R and runs stage R ascending everywhere: K1 takes
+// row_log (stages 1..R, R <= L), K2 and K3 take force_asc for stage R.
+// The option costs the other passes nothing: K1 and K2 take it as a
+// template flag, so their full-network instantiations are the plain
+// network's code (a runtime flag in the per-pair direction cost both
+// ~6%, measured).
+//
 // What bounds them on the card: every pass reads and writes each of
 // the NS streams once (8 * NS bytes per element), and the network's
 // cost is the number of passes over device memory. The design cuts
@@ -43,8 +53,9 @@ __device__ __forceinline__ bool lex_lt(const uint32_t* a, const uint32_t* b) {
 
 // One compare-exchange layer at distance 2^j over a shared-memory block
 // of len elements per stream (stream t at sm + t * len); base is the
-// block's first flat index, s the stage.
-template <int NS, int NK>
+// block's first flat index, s the stage; ASC runs it ascending
+// everywhere.
+template <int NS, int NK, bool ASC>
 __device__ __forceinline__ void smem_layer(uint32_t* sm, int len, int j,
                                            long long base, int s) {
   const int dmask = (1 << j) - 1;
@@ -57,7 +68,7 @@ __device__ __forceinline__ void smem_layer(uint32_t* sm, int len, int j,
       a[t] = sm[t * len + lo];
       b[t] = sm[t * len + hi];
     }
-    const bool desc = ((base + lo) >> s) & 1;
+    const bool desc = !ASC && (((base + lo) >> s) & 1);
     if (desc ? lex_lt<NK>(a, b) : lex_lt<NK>(b, a)) {
 #pragma unroll
       for (int t = 0; t < NS; ++t) {
@@ -97,24 +108,33 @@ __device__ __forceinline__ void store_block(const uint32_t* sm,
   }
 }
 
-// K1: all stages 1..L of one 2^L block, in place.
-template <int NS, int NK>
+// K1: stages 1..L of one 2^L block, in place; in rows mode (ROWS)
+// stages 1..row_log, the last one ascending.
+template <int NS, int NK, bool ROWS>
 __global__ void __launch_bounds__(1024)
     bitonic_block_kernel(uint32_t* __restrict__ x, long long stride,
-                         int log_block) {
+                         int log_block, int row_log) {
   extern __shared__ uint32_t sm[];
   const int len = 1 << log_block;
   const long long base = static_cast<long long>(blockIdx.x) << log_block;
   load_block<NS>(sm, x, stride, base, len);
-  for (int s = 1; s <= log_block; ++s) {
-    for (int j = s - 1; j >= 0; --j) smem_layer<NS, NK>(sm, len, j, base, s);
+  const int top = ROWS ? row_log - 1 : log_block;
+  for (int s = 1; s <= top; ++s) {
+    for (int j = s - 1; j >= 0; --j) {
+      smem_layer<NS, NK, false>(sm, len, j, base, s);
+    }
+  }
+  if constexpr (ROWS) {
+    for (int j = row_log - 1; j >= 0; --j) {
+      smem_layer<NS, NK, true>(sm, len, j, base, row_log);
+    }
   }
   store_block<NS>(sm, x, stride, base, len);
 }
 
 // K2: layers L-1..0 of stage s > L for one 2^L block, in place. The
-// direction is constant over the block.
-template <int NS, int NK>
+// direction is constant over the block (ascending under ASC).
+template <int NS, int NK, bool ASC>
 __global__ void __launch_bounds__(1024)
     bitonic_tail_kernel(uint32_t* __restrict__ x, long long stride,
                         int log_block, int s) {
@@ -123,7 +143,7 @@ __global__ void __launch_bounds__(1024)
   const long long base = static_cast<long long>(blockIdx.x) << log_block;
   load_block<NS>(sm, x, stride, base, len);
   for (int j = log_block - 1; j >= 0; --j) {
-    smem_layer<NS, NK>(sm, len, j, base, s);
+    smem_layer<NS, NK, ASC>(sm, len, j, base, s);
   }
   store_block<NS>(sm, x, stride, base, len);
 }
@@ -134,14 +154,15 @@ __global__ void __launch_bounds__(1024)
 template <int NS, int NK, int F>
 __global__ void __launch_bounds__(256)
     bitonic_global_kernel(uint32_t* __restrict__ x, long long stride,
-                          long long n_groups, int s, int j_lo) {
+                          long long n_groups, int s, int j_lo,
+                          bool force_asc) {
   constexpr int R = 1 << F;
   const long long g =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (g >= n_groups) return;
   const long long low = g & ((1LL << j_lo) - 1);
   const long long i0 = ((g >> j_lo) << (j_lo + F)) | low;
-  const bool desc = (i0 >> s) & 1;
+  const bool desc = !force_asc && ((i0 >> s) & 1);
   uint32_t v[NS][R];
 #pragma unroll
   for (int t = 0; t < NS; ++t) {
@@ -180,39 +201,53 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// Launch K1 (s == 0) or K2 (stage s) over ext / 2^L blocks.
-template <int NS, int NK>
-cudaError_t launch_block(uint32_t* x, long long ext, long long stride,
-                         int log_block, int s, cudaStream_t stream) {
+// Launch kernel over ext / 2^L blocks, L = log_block, with its args.
+template <typename Kernel, typename... Args>
+cudaError_t launch_block(Kernel kernel, int NSTREAMS, uint32_t* x,
+                         long long ext, long long stride, int log_block,
+                         cudaStream_t stream, Args... args) {
   const int len = 1 << log_block;
   const long long blocks = ext >> log_block;
   if (blocks <= 0 || (ext & (len - 1)) != 0) return cudaErrorInvalidValue;
   const int threads = len / 2 < 1024 ? len / 2 : 1024;
-  const int smem = static_cast<int>(sizeof(uint32_t)) * NS * len;
-  cudaError_t err;
-  if (s == 0) {
-    err = cudaFuncSetAttribute(bitonic_block_kernel<NS, NK>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return err;
-    bitonic_block_kernel<NS, NK>
-        <<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
-            x, stride, log_block);
-  } else {
-    err = cudaFuncSetAttribute(bitonic_tail_kernel<NS, NK>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return err;
-    bitonic_tail_kernel<NS, NK>
-        <<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
-            x, stride, log_block, s);
-  }
+  const int smem = static_cast<int>(sizeof(uint32_t)) * NSTREAMS * len;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+      x, stride, log_block, args...);
   return cudaGetLastError();
+}
+
+// K1, in rows mode if row_log > 0.
+template <int NS, int NK>
+cudaError_t launch_k1(uint32_t* x, long long ext, long long stride,
+                      int log_block, int row_log, cudaStream_t stream) {
+  if (row_log > 0) {
+    return launch_block(bitonic_block_kernel<NS, NK, true>, NS, x, ext,
+                        stride, log_block, stream, row_log);
+  }
+  return launch_block(bitonic_block_kernel<NS, NK, false>, NS, x, ext, stride,
+                      log_block, stream, 0);
+}
+
+// K2 at stage s, ascending everywhere under force_asc.
+template <int NS, int NK>
+cudaError_t launch_k2(uint32_t* x, long long ext, long long stride,
+                      int log_block, int s, bool force_asc,
+                      cudaStream_t stream) {
+  if (force_asc) {
+    return launch_block(bitonic_tail_kernel<NS, NK, true>, NS, x, ext, stride,
+                        log_block, stream, s);
+  }
+  return launch_block(bitonic_tail_kernel<NS, NK, false>, NS, x, ext, stride,
+                      log_block, stream, s);
 }
 
 template <int NS, int NK, int F>
 cudaError_t launch_global_f(uint32_t* x, long long ext, long long stride,
-                            int s, int j_lo, cudaStream_t stream) {
+                            int s, int j_lo, bool force_asc,
+                            cudaStream_t stream) {
   const long long n_groups = ext >> F;
   if (n_groups <= 0 || (ext & ((1LL << (j_lo + F)) - 1)) != 0) {
     return cudaErrorInvalidValue;
@@ -221,18 +256,22 @@ cudaError_t launch_global_f(uint32_t* x, long long ext, long long stride,
   const long long blocks = (n_groups + threads - 1) / threads;
   bitonic_global_kernel<NS, NK, F>
       <<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-          x, stride, n_groups, s, j_lo);
+          x, stride, n_groups, s, j_lo, force_asc);
   return cudaGetLastError();
 }
 
 template <int NS, int NK>
 cudaError_t launch_global(uint32_t* x, long long ext, long long stride, int s,
-                          int j_hi, int j_lo, cudaStream_t stream) {
+                          int j_hi, int j_lo, bool asc, cudaStream_t stream) {
   switch (j_hi - j_lo + 1) {
-    case 1: return launch_global_f<NS, NK, 1>(x, ext, stride, s, j_lo, stream);
-    case 2: return launch_global_f<NS, NK, 2>(x, ext, stride, s, j_lo, stream);
-    case 3: return launch_global_f<NS, NK, 3>(x, ext, stride, s, j_lo, stream);
-    case 4: return launch_global_f<NS, NK, 4>(x, ext, stride, s, j_lo, stream);
+    case 1:
+      return launch_global_f<NS, NK, 1>(x, ext, stride, s, j_lo, asc, stream);
+    case 2:
+      return launch_global_f<NS, NK, 2>(x, ext, stride, s, j_lo, asc, stream);
+    case 3:
+      return launch_global_f<NS, NK, 3>(x, ext, stride, s, j_lo, asc, stream);
+    case 4:
+      return launch_global_f<NS, NK, 4>(x, ext, stride, s, j_lo, asc, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -253,32 +292,36 @@ cudaError_t launch_global(uint32_t* x, long long ext, long long stride, int s,
   }
 
 extern "C" int sortx_bitonic_block(void* x, long long ext, long long stride,
-                                   int ns, int nk, int log_block,
+                                   int ns, int nk, int log_block, int row_log,
                                    void* stream) {
+  if (row_log < 0 || row_log > log_block) return cudaErrorInvalidValue;
   auto* p = static_cast<uint32_t*>(x);
   auto st = static_cast<cudaStream_t>(stream);
   SORTX_DISPATCH_STREAMS(ns, nk,
-                         launch_block<NS, NK>(p, ext, stride, log_block, 0, st))
+                         launch_k1<NS, NK>(p, ext, stride, log_block, row_log,
+                                           st))
 }
 
 extern "C" int sortx_bitonic_tail(void* x, long long ext, long long stride,
                                   int ns, int nk, int log_block, int s,
-                                  void* stream) {
+                                  int force_asc, void* stream) {
   if (s <= log_block) return cudaErrorInvalidValue;
   auto* p = static_cast<uint32_t*>(x);
   auto st = static_cast<cudaStream_t>(stream);
   SORTX_DISPATCH_STREAMS(ns, nk,
-                         launch_block<NS, NK>(p, ext, stride, log_block, s, st))
+                         launch_k2<NS, NK>(p, ext, stride, log_block, s,
+                                           force_asc != 0, st))
 }
 
 extern "C" int sortx_bitonic_global(void* x, long long ext, long long stride,
                                     int ns, int nk, int s, int j_hi, int j_lo,
-                                    void* stream) {
+                                    int force_asc, void* stream) {
   if (j_hi >= s || j_lo > j_hi) return cudaErrorInvalidValue;
   auto* p = static_cast<uint32_t*>(x);
   auto st = static_cast<cudaStream_t>(stream);
-  SORTX_DISPATCH_STREAMS(
-      ns, nk, launch_global<NS, NK>(p, ext, stride, s, j_hi, j_lo, st))
+  SORTX_DISPATCH_STREAMS(ns, nk,
+                         launch_global<NS, NK>(p, ext, stride, s, j_hi, j_lo,
+                                               force_asc != 0, st))
 }
 
 // Shared by every C entry of the library (the scan entry included).

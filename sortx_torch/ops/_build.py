@@ -1,11 +1,12 @@
 """Builds the hand-written CUDA kernels at first use and binds them.
 
 The kernels are compiled from ``sortx_torch/csrc/*.cu`` and nothing
-else, by ``nvcc`` for ``sm_90a``, into one shared library with a plain C
-interface under ``build/sortx_torch/`` at the root of the checkout. The
-library's name carries a hash of the sources and flags, so an unchanged
-tree loads the library it built before. It is loaded with ``ctypes``:
-every pointer and the stream pass as ``c_void_p``.
+else, by ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started
+together, then linked into one shared library with a plain C interface
+under ``build/sortx_torch/`` at the root of the checkout. The library's
+name carries a hash of the sources and flags, so an unchanged tree loads
+the library it built before. It is loaded with ``ctypes``: every pointer
+and the stream pass as ``c_void_p``.
 
 A missing ``nvcc`` or a failed build raises; nothing falls back. Each C
 entry launches on the stream it is given (PyTorch's current stream),
@@ -36,7 +37,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 BUILD_DIR = _PKG.parent / "build" / "sortx_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 # Launches of each kernel through its wrapper, by kernel name. A run
 # clears it before the work it wants to witness and reads it after.
@@ -45,14 +46,22 @@ launches: collections.Counter = collections.Counter()
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry -> argument types; every entry returns a cudaError_t as int.
 _ENTRIES = {
-    # (x, ext, stride, ns, nk, log_block, stream)
-    "sortx_bitonic_block": (_P, _L, _L, _I, _I, _I, _P),
-    # (x, ext, stride, ns, nk, log_block, s, stream)
-    "sortx_bitonic_tail": (_P, _L, _L, _I, _I, _I, _I, _P),
-    # (x, ext, stride, ns, nk, s, j_hi, j_lo, stream)
-    "sortx_bitonic_global": (_P, _L, _L, _I, _I, _I, _I, _I, _P),
+    # (x, ext, stride, ns, nk, log_block, row_log, stream)
+    "sortx_bitonic_block": (_P, _L, _L, _I, _I, _I, _I, _P),
+    # (x, ext, stride, ns, nk, log_block, s, force_asc, stream)
+    "sortx_bitonic_tail": (_P, _L, _L, _I, _I, _I, _I, _I, _P),
+    # (x, ext, stride, ns, nk, s, j_hi, j_lo, force_asc, stream)
+    "sortx_bitonic_global": (_P, _L, _L, _I, _I, _I, _I, _I, _I, _P),
     # (x, out, tile_sums, total, n, tile, inclusive, stream)
     "sortx_scan": (_P, _P, _P, _P, _L, _L, _I, _P),
+    # (x, out, n, tile, shift, radix, stream)
+    "sortx_histogram": (_P, _P, _L, _L, _I, _I, _P),
+    # (srcs[], outs[], fills[], ns, src_len, run_src, run_dst, run_len,
+    #  chunk_first, chunk_count, out_len, chunk, stream)
+    "sortx_move_runs": (_P, _P, _P, _I, _L, _P, _P, _P, _P, _P, _L, _L, _P),
+    # (src, out, src_len, piece_src, piece_dst_off, piece_len,
+    #  chunk_first, chunk_count, out_len, chunk, stream)
+    "sortx_apply_pieces": (_P, _P, _L, _P, _P, _P, _P, _P, _L, _L, _P),
 }
 
 
@@ -81,15 +90,14 @@ def library() -> ctypes.CDLL:
     out = BUILD_DIR / f"libsortx_torch_{_digest()}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stderr[-4000:]}")
-        os.replace(tmp, out)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            nvcc = _nvcc()
+            objs = [os.path.join(tmp, src.stem + ".o") for src in SOURCES]
+            _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+                      for src, obj in zip(SOURCES, objs)])
+            so = os.path.join(tmp, out.name)
+            _run_all([[nvcc, "-shared", "-o", so, *objs]])
+            os.replace(so, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _ENTRIES.items():
         fn = getattr(lib, name)
@@ -98,6 +106,19 @@ def library() -> ctypes.CDLL:
     lib.sortx_error_string.argtypes = (ctypes.c_int,)
     lib.sortx_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _run_all(cmds) -> None:
+    """Run the commands side by side; once all have ended, raise with the
+    output of the first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    errs = [p.communicate()[1] for p in procs]
+    for cmd, proc, err in zip(cmds, procs, errs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{err[-4000:]}")
 
 
 def on_card(t: torch.Tensor) -> bool:

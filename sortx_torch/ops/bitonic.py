@@ -25,6 +25,13 @@ tensor. All of them work in place on the prefix ``x[:, :ext]``.
 real element sorts to itself, so stage s only runs over the prefix
 ``ceil(n_valid / 2^s) * 2^s``. The pads beyond that prefix are never
 touched, so they stay 0xFFFFFFFF with no re-padding between stages.
+
+``row_log`` R is rows mode (``sort_rows``, the hybrid engine's phases):
+the buffer is rows of 2^R elements, each sorted ascending on its own.
+Exchanges at distance < 2^R never cross a row, so the network stops at
+stage R and runs stage R ascending everywhere (K1's ``row_log``, K2's
+and K3's ``force_asc``). The length then need only be a multiple of
+the row and of 1024, not a power of two.
 """
 
 from __future__ import annotations
@@ -63,39 +70,47 @@ def _lt(a: torch.Tensor, b: torch.Tensor, num_keys: int) -> torch.Tensor:
     return lt
 
 
-def _layer(x: torch.Tensor, ext: int, num_keys: int, s: int, j: int) -> None:
-    """Layer j of stage s over x[:, :ext], in place."""
+def _layer(x: torch.Tensor, ext: int, num_keys: int, s: int, j: int,
+           asc: bool = False) -> None:
+    """Layer j of stage s over x[:, :ext], in place; ``asc`` runs it
+    ascending everywhere (the last stage of rows mode)."""
     d = 1 << j
     groups = ext // (2 * d)
     v = x[:, :ext].view(x.shape[0], groups, 2, d)
     a, b = v[:, :, 0], v[:, :, 1]
-    # group g starts at flat index g * 2^(j+1); its direction is bit s
-    desc = ((torch.arange(groups, device=x.device) >> (s - j - 1)) & 1
-            ).bool().unsqueeze(1)
-    swap = torch.where(desc, _lt(a, b, num_keys), _lt(b, a, num_keys))
+    if asc:
+        swap = _lt(b, a, num_keys)
+    else:
+        # group g starts at flat index g * 2^(j+1); its direction is bit s
+        desc = ((torch.arange(groups, device=x.device) >> (s - j - 1)) & 1
+                ).bool().unsqueeze(1)
+        swap = torch.where(desc, _lt(a, b, num_keys), _lt(b, a, num_keys))
     na, nb = torch.where(swap, b, a), torch.where(swap, a, b)
     a.copy_(na)
     b.copy_(nb)
 
 
-def block_plain(x, ext: int, num_keys: int, log_block: int) -> None:
-    """Plain version of K1: stages 1..log_block over x[:, :ext]."""
-    for s in range(1, log_block + 1):
+def block_plain(x, ext: int, num_keys: int, log_block: int,
+                row_log: int = 0) -> None:
+    """Plain version of K1: stages 1..log_block over x[:, :ext], or with
+    ``row_log`` stages 1..row_log, the last one ascending."""
+    for s in range(1, (row_log or log_block) + 1):
         for j in range(s - 1, -1, -1):
-            _layer(x, ext, num_keys, s, j)
+            _layer(x, ext, num_keys, s, j, s == row_log)
 
 
-def tail_plain(x, ext: int, num_keys: int, log_block: int, s: int) -> None:
+def tail_plain(x, ext: int, num_keys: int, log_block: int, s: int,
+               force_asc: bool = False) -> None:
     """Plain version of K2: layers log_block-1..0 of stage s."""
     for j in range(log_block - 1, -1, -1):
-        _layer(x, ext, num_keys, s, j)
+        _layer(x, ext, num_keys, s, j, force_asc)
 
 
 def global_plain(x, ext: int, num_keys: int, s: int, j_hi: int,
-                 j_lo: int) -> None:
+                 j_lo: int, force_asc: bool = False) -> None:
     """Plain version of K3: layers j_hi..j_lo of stage s."""
     for j in range(j_hi, j_lo - 1, -1):
-        _layer(x, ext, num_keys, s, j)
+        _layer(x, ext, num_keys, s, j, force_asc)
 
 
 # --- kernel wrappers -----------------------------------------------------
@@ -114,20 +129,24 @@ def _check(x: torch.Tensor, ext: int, num_keys: int, granule: int) -> None:
 
 
 def bitonic_block(x: torch.Tensor, ext: int, num_keys: int,
-                  log_block: int) -> torch.Tensor:
-    """K1: stages 1..log_block on every 2^log_block block of x[:, :ext]."""
+                  log_block: int, row_log: int = 0) -> torch.Tensor:
+    """K1: stages 1..log_block on every 2^log_block block of x[:, :ext];
+    with ``row_log`` <= log_block, stages 1..row_log, the last ascending."""
     _check(x, ext, num_keys, 1 << log_block)
+    if not 0 <= row_log <= log_block:
+        raise ValueError(f"row_log {row_log} is not within the block "
+                         f"2^{log_block}")
     if on_card(x):
         launch("bitonic_block", "sortx_bitonic_block", x.device,
                x.data_ptr(), ext, x.stride(0), x.shape[0], num_keys,
-               log_block)
+               log_block, row_log)
     else:
-        block_plain(x, ext, num_keys, log_block)
+        block_plain(x, ext, num_keys, log_block, row_log)
     return x
 
 
 def bitonic_tail(x: torch.Tensor, ext: int, num_keys: int, log_block: int,
-                 s: int) -> torch.Tensor:
+                 s: int, force_asc: bool = False) -> torch.Tensor:
     """K2: layers log_block-1..0 of stage s > log_block over x[:, :ext]."""
     _check(x, ext, num_keys, 1 << log_block)
     if s <= log_block:
@@ -135,14 +154,15 @@ def bitonic_tail(x: torch.Tensor, ext: int, num_keys: int, log_block: int,
     if on_card(x):
         launch("bitonic_tail", "sortx_bitonic_tail", x.device,
                x.data_ptr(), ext, x.stride(0), x.shape[0], num_keys,
-               log_block, s)
+               log_block, s, int(force_asc))
     else:
-        tail_plain(x, ext, num_keys, log_block, s)
+        tail_plain(x, ext, num_keys, log_block, s, force_asc)
     return x
 
 
 def bitonic_global(x: torch.Tensor, ext: int, num_keys: int, s: int,
-                   j_hi: int, j_lo: int) -> torch.Tensor:
+                   j_hi: int, j_lo: int,
+                   force_asc: bool = False) -> torch.Tensor:
     """K3: layers j_hi..j_lo (at most F_MAX) of stage s over x[:, :ext]."""
     _check(x, ext, num_keys, 1 << (j_hi + 1))
     if not 0 <= j_lo <= j_hi < s or j_hi - j_lo >= F_MAX:
@@ -151,9 +171,9 @@ def bitonic_global(x: torch.Tensor, ext: int, num_keys: int, s: int,
     if on_card(x):
         launch("bitonic_global", "sortx_bitonic_global", x.device,
                x.data_ptr(), ext, x.stride(0), x.shape[0], num_keys, s,
-               j_hi, j_lo)
+               j_hi, j_lo, int(force_asc))
     else:
-        global_plain(x, ext, num_keys, s, j_hi, j_lo)
+        global_plain(x, ext, num_keys, s, j_hi, j_lo, force_asc)
     return x
 
 
@@ -167,38 +187,60 @@ KERNELS = {   # kernel name -> (wrapper, plain version)
 
 
 def pass_plan(ns: int, n: int, num_keys: int, n_valid: int | None = None,
-              log_block: int = LOG_BLOCK_MAX):
+              log_block: int = LOG_BLOCK_MAX, row_log: int | None = None):
     """The passes that sort an (ns, n) buffer, in order, as
-    (kernel name, arguments after ``x``) pairs; see the module notes."""
-    log_n = n.bit_length() - 1
-    if (1 << log_n) != n:
-        raise ValueError("bitonic_sort_streams needs power-of-two length")
+    (kernel name, arguments after ``x``) pairs; see the module notes.
+
+    In rows mode only the passes that differ from the full network's
+    carry the rows-mode argument: K1 when it holds the last row stage,
+    and the passes of stage row_log."""
     nv = n if n_valid is None else min(n_valid, n)
-    if n < 2 or nv <= 0:
-        return []
-    lb = min(block_log(ns, log_block), log_n)
+    if row_log is None:
+        log_n = n.bit_length() - 1
+        if (1 << log_n) != n:
+            raise ValueError("bitonic_sort_streams needs power-of-two "
+                             "length")
+        if n < 2 or nv <= 0:
+            return []
+        lb = min(block_log(ns, log_block), log_n)
+        top = log_n
+    else:
+        # rows pack into blocks freely (K1 stops at row_log); the block
+        # only has to divide the length
+        if n <= 0 or n % 1024 or row_log < 1 or n % (1 << row_log):
+            raise ValueError(f"rows-mode length {n} must be a positive "
+                             f"multiple of 1024 and of the row 2^{row_log}")
+        if nv <= 0:
+            return []
+        lb = min(block_log(ns, log_block), (n & -n).bit_length() - 1)
+        top = row_log
+    rows_k1 = (row_log,) if row_log is not None and row_log <= lb else ()
     plan = [("bitonic_block",
-             (min(n, cdiv(nv, 1 << lb) << lb), num_keys, lb))]
-    for s in range(lb + 1, log_n + 1):
+             (min(n, cdiv(nv, 1 << lb) << lb), num_keys, lb) + rows_k1)]
+    for s in range(lb + 1, top + 1):
         ext = min(n, cdiv(nv, 1 << s) << s)
+        asc = (True,) if s == row_log else ()
         j = s - 1
         while j >= lb:
             j_lo = max(lb, j - F_MAX + 1)
-            plan.append(("bitonic_global", (ext, num_keys, s, j, j_lo)))
+            plan.append(("bitonic_global", (ext, num_keys, s, j, j_lo) + asc))
             j = j_lo - 1
-        plan.append(("bitonic_tail", (ext, num_keys, lb, s)))
+        plan.append(("bitonic_tail", (ext, num_keys, lb, s) + asc))
     return plan
 
 
 def bitonic_sort_streams(x: torch.Tensor, num_keys: int, *,
                          n_valid: int | None = None,
-                         log_block: int = LOG_BLOCK_MAX) -> torch.Tensor:
+                         log_block: int = LOG_BLOCK_MAX,
+                         row_log: int | None = None) -> torch.Tensor:
     """Sort the columns of the (ns, n) int32 buffer ``x`` in place by its
-    first ``num_keys`` rows; n must be a power of two. Returns ``x``.
+    first ``num_keys`` rows; n must be a power of two, or in rows mode
+    (``row_log``) a multiple of 1024 and of the row. Returns ``x``.
 
     ``n_valid``: number of real elements; every column at index >=
     n_valid must be 0xFFFFFFFF in every stream (the callers pad so).
     """
-    for name, args in pass_plan(*x.shape, num_keys, n_valid, log_block):
+    for name, args in pass_plan(*x.shape, num_keys, n_valid, log_block,
+                                row_log):
         KERNELS[name][0](x, *args)
     return x

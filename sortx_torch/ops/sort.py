@@ -7,6 +7,9 @@ natural order (f32: a total order with NaNs at the extremes by sign);
 participating key bits around an ascending sort, so it stays stable.
 Values may be any 8-, 16- or 32-bit dtype and ride as 32-bit words.
 
+Engines: "network" (the bitonic network), "hybrid" (the sample sort,
+always stable), "host" (``torch.sort``); see ``config.py``.
+
 Ordered inputs skip the engines: keys whose sort key is already
 nondecreasing come back as they are, and a full-width keys-only input
 that is nonincreasing only flips (equal keys are indistinguishable).
@@ -22,8 +25,9 @@ import torch
 
 from ..config import Config, resolve_engine
 from ..utils.words import SIGN, monotone
-from .capacity import check_device_capacity
+from .capacity import check_device_capacity, network_bytes
 from .sort_host import sort_host, sort_kv_host
+from .sort_hybrid import hybrid_bytes, sort_hybrid, sort_kv_hybrid
 from .sort_network import network_streams, sort_kv_network, sort_network
 
 __all__ = ["sort", "sort_kv"]
@@ -37,17 +41,26 @@ _NOT_PORTED_64 = ("64-bit {what} are not ported yet (ROADMAP Queue 1 "
                   "item 7), got {dtype}")
 
 
-def _check_keys(keys: torch.Tensor) -> None:
-    if keys.dim() != 1:
-        raise ValueError("sort expects a 1D key array")
-    dt = keys.dtype
+def _check_key_dtype(dt: torch.dtype, what: str = "sort",
+                     allow64: bool = False) -> None:
+    """The key dtypes of ``sortx``'s ``_check_key_dtype``: 64-bit keys,
+    which ``sort`` and ``sort_kv`` accept there (``allow64``), are not
+    ported yet; the other ops reject them as ``sortx`` does."""
     if dt in _KEYS32 or dt in _WIDEN:
         return
     if dt in _DTYPES64:
-        raise NotImplementedError(_NOT_PORTED_64.format(what="keys",
-                                                        dtype=dt))
-    raise TypeError("sort supports u32/i32/f32 (or 16-bit u16/i16/f16/bf16) "
-                    f"keys, got {dt}")
+        if allow64:
+            raise NotImplementedError(_NOT_PORTED_64.format(what="keys",
+                                                            dtype=dt))
+        raise TypeError(f"{what} does not support 64-bit keys (got {dt})")
+    raise TypeError(f"{what} supports u32/i32/f32 (or 16-bit "
+                    f"u16/i16/f16/bf16) keys, got {dt}")
+
+
+def _check_keys(keys: torch.Tensor, allow64: bool = False) -> None:
+    if keys.dim() != 1:
+        raise ValueError("sort expects a 1D key array")
+    _check_key_dtype(keys.dtype, allow64=allow64)
 
 
 def _resolve_sort_bits(keys: torch.Tensor, sort_bits: int | None) -> int:
@@ -117,7 +130,7 @@ def sort(keys: torch.Tensor, sort_bits: int | None = None, *,
     uint32 keys. The result lives on the keys' device.
     """
     cfg = config or Config()
-    _check_keys(keys)
+    _check_keys(keys, allow64=True)
     sort_bits = _resolve_sort_bits(keys, sort_bits)
     n = keys.shape[0]
     if n <= 1:
@@ -130,12 +143,20 @@ def sort(keys: torch.Tensor, sort_bits: int | None = None, *,
         out = k
     elif down and sort_bits >= 32:
         out = k.flip(0)
-    elif resolve_engine(cfg, keys) == "host":
-        out = sort_host(k, sort_bits)
     else:
-        check_device_capacity(n, network_streams(n, sort_bits, False, True),
-                              keys.device)
-        out = sort_network(k, sort_bits)
+        engine = resolve_engine(cfg, keys)
+        if engine == "host":
+            out = sort_host(k, sort_bits)
+        elif engine == "hybrid":
+            check_device_capacity(
+                hybrid_bytes(n, 1 if sort_bits >= 32 else 2, cfg),
+                keys.device, f"hybrid sort of n={n}")
+            out = sort_hybrid(k, sort_bits, cfg)
+        else:
+            check_device_capacity(
+                network_bytes(n, network_streams(n, sort_bits, False, True)),
+                keys.device, f"sort of n={n}")
+            out = sort_network(k, sort_bits)
     if descending:
         out = out ^ _order_mask(sort_bits)
     return undo(out)
@@ -150,7 +171,7 @@ def sort_kv(keys: torch.Tensor, values: torch.Tensor,
     of values under equal keys is then unspecified.
     """
     cfg = config or Config()
-    _check_keys(keys)
+    _check_keys(keys, allow64=True)
     sort_bits = _resolve_sort_bits(keys, sort_bits)
     if values.shape != keys.shape:
         raise ValueError("keys and values must have the same shape")
@@ -161,13 +182,21 @@ def sort_kv(keys: torch.Tensor, values: torch.Tensor,
     v, undo_v = _value_words(values.contiguous())
     if descending:
         k = k ^ _order_mask(sort_bits)
+    engine = resolve_engine(cfg, keys)
     if monotone(_sort_key(k, sort_bits))[0]:
         ks, vs = k, v
-    elif resolve_engine(cfg, keys) == "host":
+    elif engine == "host":
         ks, vs = sort_kv_host(k, v, sort_bits)
+    elif engine == "hybrid":
+        # always stable, whatever ``stable`` says
+        check_device_capacity(
+            hybrid_bytes(n, 2 if sort_bits >= 32 else 3, cfg),
+            keys.device, f"hybrid sort_kv of n={n}")
+        ks, vs = sort_kv_hybrid(k, v, sort_bits, cfg)
     else:
-        check_device_capacity(n, network_streams(n, sort_bits, True, stable),
-                              keys.device)
+        check_device_capacity(
+            network_bytes(n, network_streams(n, sort_bits, True, stable)),
+            keys.device, f"sort_kv of n={n}")
         ks, vs = sort_kv_network(k, v, sort_bits, stable=stable)
     if descending:
         ks = ks ^ _order_mask(sort_bits)

@@ -14,6 +14,10 @@ sets, by case (comparator keys first):
   partial-bit KV, packed       (composite, key, value)     1 key
   partial-bit KV               (masked, idx, key, value)   2 keys
 
+The row sorts (``sort_rows``, the hybrid engine's phases) run the
+network in rows mode over (key) or (key, pos, payloads...) rows:
+:func:`network_rows`.
+
 The network runs at every n >= 2. The short cuts for ordered inputs
 are taken before any engine, in ``ops/sort.py``.
 
@@ -26,11 +30,12 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.math import cdiv
 from ..utils.words import FF, wrap_i32
-from .bitonic import bitonic_sort_streams
+from .bitonic import bitonic_sort_streams, block_log
 
 __all__ = ["sort_network", "sort_kv_network", "packed_partial",
-           "network_streams"]
+           "network_streams", "network_rows"]
 
 
 def packed_partial(n: int, sort_bits: int) -> bool:
@@ -106,3 +111,30 @@ def sort_kv_network(keys: torch.Tensor, values: torch.Tensor,
         return out[1], out[2]
     out = _bitonic((masked, _iota(n, keys.device), keys, values), 2, n)
     return out[2], out[3]
+
+
+def network_rows(rows):
+    """Sort every row of the (R, L) int32 word tensors ``rows`` by the
+    unsigned order of ``rows[0]`` on the row network; the other tensors
+    follow, and with any of them equal keys keep their order (the
+    in-row position joins the comparator). Returns the sorted tensors."""
+    R, L = rows[0].shape
+    Lp = 1 << max((L - 1).bit_length(), 1)
+    stable = len(rows) > 1
+    ns = len(rows) + stable
+    n = R * Lp
+    total = cdiv(n, 1 << block_log(ns)) << block_log(ns)
+    x = torch.full((ns, total), FF, dtype=torch.int32,
+                   device=rows[0].device)
+    x[0, :n].view(R, Lp)[:, :L] = rows[0]
+    if stable:
+        # pads past L in a row hold key 0xFFFFFFFF and a position >= L,
+        # so they stay behind the row's real 0xFFFFFFFF keys
+        x[1, :n].view(R, Lp)[:] = torch.arange(Lp, dtype=torch.int32,
+                                                device=x.device)
+        for t, r in enumerate(rows[1:], 2):
+            x[t, :n].view(R, Lp)[:, :L] = r
+    bitonic_sort_streams(x, 2 if stable else 1, n_valid=n,
+                         row_log=Lp.bit_length() - 1)
+    out = [x[t, :n].view(R, Lp)[:, :L] for t in range(ns)]
+    return [out[0]] + out[2:]

@@ -13,8 +13,13 @@ import torch
 
 import sortx_torch
 from sortx_torch.ops import bitonic as tb
+from sortx_torch.ops import sort_hybrid
 from sortx_torch.ops._build import launches
+from sortx_torch.ops.radix_kernels import histogram_plain, tile_histogram
 from sortx_torch.ops.scan import scan_plain, tile_scan
+from sortx_torch.ops.shuffle import (CHUNK_ELEMS, apply_runs,
+                                     apply_runs_plain, build_piece_plan,
+                                     move_runs, move_runs_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -102,3 +107,146 @@ def test_sort_kv_network_matches_host(dev, stable, sort_bits):
             p = np.stack([ks.view(torch.int32).numpy(), vs.numpy()], 1)
             pairs.append(p[np.lexsort((p[:, 1], p[:, 0]))])
         np.testing.assert_array_equal(*pairs)
+
+
+# --- rows mode of K1-K3 (sort_rows, the hybrid's phases) -----------------
+
+@pytest.mark.parametrize("ns, nk", STREAM_SETS)
+@pytest.mark.parametrize("kernel", ["block_rows", "tail_asc", "global_asc"])
+def test_rows_mode_kernel_matches_plain(dev, ns, nk, kernel):
+    n = 1 << 15
+    x = _words(ns * 10 + nk + 7, (ns, n))
+    if nk == 2:                      # the in-row position, as the rows pass
+        x[1] = torch.arange(n) % (1 << 12)
+    lb = tb.block_log(ns)
+    name, fn, plain, args = {
+        "block_rows": ("bitonic_block", tb.bitonic_block, tb.block_plain,
+                       (n, nk, lb, lb - 2)),
+        "tail_asc": ("bitonic_tail", tb.bitonic_tail, tb.tail_plain,
+                     (n, nk, lb, 15, True)),
+        "global_asc": ("bitonic_global", tb.bitonic_global, tb.global_plain,
+                       (n, nk, 15, 14, 12, True)),
+    }[kernel]
+    got = x.to(dev)
+    want = x.to(dev)
+    before = launches[name]
+    fn(got, *args)
+    plain(want, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert launches[name] == before + 1
+
+
+@pytest.mark.parametrize("ns, nk", [(1, 1), (3, 2), (4, 2)])
+@pytest.mark.parametrize("row_log", [9, 16])
+def test_rows_network_matches_plain(dev, ns, nk, row_log):
+    n = 3 << 16
+    x = _words(row_log + ns, (ns, n))
+    if nk == 2:
+        x[1] = torch.arange(n) % (1 << row_log)
+    got = tb.bitonic_sort_streams(x.to(dev), nk, row_log=row_log)
+    want = tb.bitonic_sort_streams(x.clone(), nk, row_log=row_log)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("L", [1000, 1 << 12])
+def test_sort_kv_rows_matches_host(dev, L):
+    k = _words(L, (300, L))
+    v = torch.arange(300 * L, dtype=torch.int32).view(300, L)
+    got = sortx_torch.sort_kv_rows(k.to(dev), v.to(dev), descending=True)
+    want = sortx_torch.sort_kv_rows(k, v, descending=True)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+# --- K5, the tile histogram ----------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 5000, (1 << 20) + 13])
+@pytest.mark.parametrize("radix, shift", [(256, 24), (16, 30), (256, 0),
+                                          (2, 31)])
+def test_histogram_matches_plain(dev, n, radix, shift):
+    x = _words(n + shift, n, dup=False)
+    x[: n // 2] = 7                  # one digit for half the tile: skew
+    got = tile_histogram(x.to(dev), shift, radix=radix, tile_elems=16384)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), histogram_plain(x, shift, radix, 16384))
+
+
+# --- K6 and K7, the movers -------------------------------------------------
+
+def _runs(seed, n, chunk):
+    """Destination-sorted runs with gaps and zero-length runs."""
+    rng = np.random.RandomState(seed)
+    src, dst, ln, pos = [], [], [], 0
+    while True:
+        pos += int(rng.randint(0, 300))
+        length = int(rng.choice([0, 1, 7, 900, 3 * chunk // 2]))
+        if pos + length > 4 * chunk:
+            break
+        src.append(int(rng.randint(0, n - length + 1)))
+        dst.append(pos)
+        ln.append(length)
+        pos += length
+    return [torch.tensor(a, dtype=torch.int32) for a in (src, dst, ln)]
+
+
+@pytest.mark.parametrize("ns", [1, 2, 3, 4])
+def test_move_runs_matches_plain(dev, ns):
+    chunk, n = 2048, 20_000
+    srcs = [_words(t, n, dup=False) for t in range(ns)]
+    fills = [0xFFFFFFFF, 0, 5, 0x80000000][:ns]
+    runs = _runs(ns, n, chunk)
+    got = move_runs([s.to(dev) for s in srcs], *(r.to(dev) for r in runs),
+                    4 * chunk, fills=fills, chunk=chunk)
+    want = move_runs_plain(srcs, *runs, 4 * chunk, fills)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_apply_runs_matches_plain(dev):
+    chunk = CHUNK_ELEMS
+    n = 8 * chunk
+    rng = np.random.RandomState(3)
+    cuts = np.sort(rng.choice(np.arange(1, n), size=500, replace=False))
+    bounds = np.concatenate([[0], cuts, [n]])
+    lens = np.diff(bounds)
+    perm = rng.permutation(len(lens))
+    starts = np.concatenate([[0], np.cumsum(lens[perm])[:-1]])[
+        np.argsort(perm)]
+    plan = build_piece_plan(starts, bounds[:-1], lens, n)
+    src = _words(4, n, dup=False)
+    got = apply_runs(src.to(dev), plan, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), apply_runs_plain(src, plan, n))
+
+
+# --- the hybrid engine and the order statistics ---------------------------
+
+@pytest.mark.parametrize("kv", [False, True])
+@pytest.mark.parametrize("sort_bits", [None, 12])
+def test_hybrid_matches_host(dev, kv, sort_bits):
+    n = (1 << 20) + 13
+    k = _words(5, n, dup=False).view(torch.uint32)
+    v = torch.arange(n, dtype=torch.int32)
+    cfg = sortx_torch.Config(engine="hybrid", engine_tile_elems=1 << 17)
+    if kv:
+        got = sortx_torch.sort_kv(k.to(dev), v.to(dev), sort_bits, config=cfg)
+        want = sortx_torch.sort_kv(k, v, sort_bits)
+    else:
+        got = (sortx_torch.sort(k.to(dev), sort_bits, config=cfg),)
+        want = (sortx_torch.sort(k, sort_bits),)
+    assert sort_hybrid.last_dispatch == "hybrid"
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_order_statistics_match_cpu(dev):
+    k = (_words(6, 1 << 20) ^ _words(7, 1 << 20, dup=False) % 3)
+    assert torch.equal(sortx_torch.kth_value(k.to(dev), 12345).cpu(),
+                       sortx_torch.kth_value(k, 12345))
+    for kk in (16, 1024):
+        got = sortx_torch.top_k(k.to(dev), kk, return_indices=True)
+        want = sortx_torch.top_k(k, kk, return_indices=True)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])

@@ -90,13 +90,15 @@ def test_config_from_sortx():
                                      scan_tile_elems=1 << 18)
     assert config_from_sortx(sortx.Config(engine="host")).engine == "host"
     assert config_from_sortx(sortx.Config()).engine == "auto"
-    with pytest.raises(NotImplementedError):
-        config_from_sortx(sortx.Config(engine="hybrid"))
+    assert config_from_sortx(sortx.Config(engine="hybrid")).engine == "hybrid"
 
 
 def test_config_rejects_bad_fields():
     for kw in (dict(engine="pallas"), dict(scan_tile_elems=1000),
-               dict(scan_tile_elems=0), dict(scan_tile_elems=-1024)):
+               dict(scan_tile_elems=0), dict(scan_tile_elems=-1024),
+               dict(sort_tile_elems=100), dict(engine_chunk_elems=0),
+               dict(engine_headroom=0.9), dict(engine_phase_sort="xla"),
+               dict(engine_tile_elems=0), dict(engine_buckets=-1)):
         with pytest.raises(ValueError):
             sortx_torch.Config(**kw)
 
