@@ -7,7 +7,8 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 It builds the kernels from sortx_torch/csrc/ (one nvcc per source, side
 by side) and checks each kernel against its plain PyTorch version bit
 for bit at the shapes its paths give it: every pass of the network's
-pass plan, full and in rows mode, the histogram, and both run movers.
+pass plan, full and in rows mode, at the wide stream sets (up to 8
+streams) and in the merge stage, the histogram, and both run movers.
 Then it drives each path through the public API at full size (n = 2^27
 u32 keys, 512 MB per stream, or 2048 rows of 2^16):
 
@@ -17,9 +18,13 @@ u32 keys, 512 MB per stream, or 2048 rows of 2^16):
   rows       sort_rows and sort_kv_rows
   select     histogram, kth_value, median and top_k
   movers     apply_runs on a radix-style piece plan
+  companions 64-bit sort / sort_kv, argsort, lexsort, sort_kv of u64 keys,
+             merge / merge_kv, unique, run_length_encode, reduce_by_key,
+             sum_by_key, partition, sort_segments, sort_kv_segments,
+             scan_segments and scan_by_key
 
 Every result is checked against torch (torch.sort, torch.cumsum,
-torch.bincount, torch.topk) or numpy on the same input. Each path runs
+torch.bincount, torch.topk, torch.unique) or numpy on the same input. Each path runs
 with the kernels' launch counters set to 0 just before it and read just
 after, and fails if one of its kernels never launched. Then it times
 each path beside its torch counterpart, and each kernel beside its
@@ -38,6 +43,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -51,6 +57,9 @@ from sortx_torch.ops.scan import scan_plain, tile_scan
 from sortx_torch.ops.shuffle import (apply_runs, apply_runs_plain,
                                      build_piece_plan, move_runs,
                                      move_runs_plain)
+# the signed view of a tensor's width, which (unlike uint32 and uint64 on
+# the card) gathers
+from sortx_torch.utils.words import int_view as iv
 
 N = 1 << 27            # the reference's headline size
 RAGGED = (1 << 26) + 13
@@ -154,12 +163,12 @@ def stream_set(rng, dev, ns: int, nk: int, n: int, nv: int) -> torch.Tensor:
 
 
 def walk_plan(x: torch.Tensor, nk: int, nv: int, err: dict,
-              row_log: int | None = None) -> int:
-    """Run the network's pass plan on x (in rows mode with row_log), each
-    pass through its kernel and, on a copy of the same input, through its
-    plain version; the two must agree bit for bit. Returns the number of
-    passes."""
-    plan = tb.pass_plan(*x.shape, nk, nv, row_log=row_log)
+              row_log: int | None = None, plan=None) -> int:
+    """Run the network's pass plan on x (in rows mode with row_log; or
+    the given plan, such as the merge stage's), each pass through its
+    kernel and, on a copy of the same input, through its plain version;
+    the two must agree bit for bit. Returns the number of passes."""
+    plan = plan or tb.pass_plan(*x.shape, nk, nv, row_log=row_log)
     for name, args in plan:
         fn, plain = tb.KERNELS[name]
         want = x.clone()
@@ -523,6 +532,551 @@ def movers_path(dev) -> dict:
     return counts
 
 
+# --- the companions: 64-bit sorts, argsort, lexsort, merge, keyed and
+# segmented ops ----------------------------------------------------------
+
+SIGN64 = -(1 << 63)
+WALK = 1 << 22         # every wide stream set's ragged walk
+N24 = 1 << 24          # lexsort of 7 columns, the wide kernels' timings
+WIDE_SETS = sorted(tb.STREAM_SETS - tb.NARROW_SETS)
+
+
+def cwords(gen, n: int, dev) -> torch.Tensor:
+    """n random u32 words (as int32), drawn on the card."""
+    return torch.randint(0, 2**32, (n,), device=dev, generator=gen,
+                         dtype=torch.int64).to(torch.int32)
+
+
+def image64(t: torch.Tensor) -> torch.Tensor:
+    """int64 whose signed order is the order sortx gives 64-bit keys:
+    u64 unsigned, i64 signed, f64 total (NaNs at the ends by sign)."""
+    b = t.view(torch.int64)
+    if t.dtype == torch.uint64:
+        return b ^ SIGN64
+    if t.dtype == torch.int64:
+        return b
+    return b ^ ((b >> 63) & ~SIGN64)
+
+
+def keys64(gen, dev, dtype, n: int) -> torch.Tensor:
+    """Duplicate-heavy 64-bit keys: few distinct hi words, so lo decides;
+    f64 also with signed zeros, infinities and NaNs of both signs."""
+    if dtype == torch.float64:
+        f = torch.round(torch.randn(n, device=dev, generator=gen,
+                                    dtype=torch.float64) * 1000) / 8
+        pick = torch.randint(0, n, (6, 1000), device=dev, generator=gen)
+        for row, v in zip(pick, (-0.0, 0.0, float("inf"), float("-inf"),
+                                 float("nan"), -float("nan"))):
+            f[row] = v
+        return f
+    hi = cwords(gen, n, dev).to(torch.int64) & 0xFFF
+    lo = cwords(gen, n, dev).to(torch.int64) & 0x3FF
+    k = (hi << 52) | (hi << 20) | lo
+    return k.view(torch.uint64) if dtype == torch.uint64 else k
+
+
+def stable_order(*images) -> torch.Tensor:
+    """The stable sorting permutation by int64 images, images[0] the most
+    significant: chained stable torch.sort passes, least significant
+    first."""
+    perm = torch.sort(images[-1], stable=True).indices
+    for img in reversed(images[:-1]):
+        perm = perm[torch.sort(img[perm], stable=True).indices]
+    return perm
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(iv(a), iv(b))
+
+
+def lex_sorted(x: torch.Tensor, nk: int) -> bool:
+    """Are the columns of x nondecreasing on its first nk rows, unsigned
+    and lexicographic?"""
+    a, b = ordered(x[:nk, :-1]), ordered(x[:nk, 1:])
+    le = torch.zeros(a.shape[1], dtype=torch.bool, device=x.device)
+    eq = torch.ones_like(le)
+    for t in range(nk):
+        le |= eq & (a[t] < b[t])
+        eq &= a[t] == b[t]
+    return bool((le | eq).all())
+
+
+def wide_set(gen, dev, ns: int, nk: int, n: int, nv: int) -> torch.Tensor:
+    """An (ns, n) buffer shaped like a wide stream set, padded with
+    0xFFFFFFFF from nv: key words with few values (so ties reach the
+    later keys), a tie-free last key (the idx stream), then payloads."""
+    x = torch.full((ns, n), -1, dtype=torch.int32, device=dev)
+    for t in range(ns):
+        x[t, :nv] = cwords(gen, nv, dev)
+        if t < nk - 1:
+            x[t, :nv] &= 3
+    x[nk - 1, :nv] = torch.randperm(nv, device=dev, generator=gen,
+                                    dtype=torch.int32)
+    return x
+
+
+def merge_set(gen, dev, ns: int, n: int, na: int, nb: int) -> torch.Tensor:
+    """The merge's buffer: [a, pads, reverse(b)] of two sorted runs of
+    duplicate-heavy keys; with 3 streams also the idx stream (pads
+    0xFFFFFFFF) and a payload (pads 0), as merge_kv builds them."""
+    x = torch.zeros((ns, n), dtype=torch.int32, device=dev)
+    srt = lambda m: torch.sort(cwords(gen, m, dev) & 0xFFFFF).values  # noqa: E731
+    x[0, :na], x[0, na:n - nb], x[0, n - nb:] = srt(na), -1, srt(nb).flip(0)
+    if ns == 3:
+        x[1, :na] = torch.arange(na, dtype=torch.int32, device=dev)
+        x[1, na:n - nb] = -1
+        x[1, n - nb:] = torch.arange(na, na + nb, dtype=torch.int32,
+                                     device=dev).flip(0)
+        x[2, :na], x[2, n - nb:] = cwords(gen, na, dev), cwords(gen, nb, dev)
+    return x
+
+
+def companion_walks(dev, err: dict) -> None:
+    """K1-K3 at each wide stream set at 2^22 (ragged), and at the sizes
+    the companions path gives them: (3,3) at 2^27 (argsort f64) and on a
+    2^27 buffer with 2^26 + 13 valid (unstable sort_kv, int64 values),
+    (4,3) at 2^27 (stable sort_kv of u64 keys, sort_kv_segments), (4,2)
+    at 2^27 (stable sort_kv, int64 values), (5,5) at 2^27 (lexsort of 3
+    columns), (8,8) at 2^24 (lexsort of 7); and the merge stage (2^27,
+    and 2^12, where K2 takes s == L). Every pass against its plain
+    version; then the keys must be sorted."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    walks = [(ns, nk, WALK, WALK - 12345) for ns, nk in WIDE_SETS] + [
+        (3, 3, N, N), (3, 3, N, RAGGED), (4, 3, N, N), (4, 2, N, N),
+        (5, 5, N, N), (8, 8, N24, N24)]
+    for ns, nk, n, nv in walks:
+        x = wide_set(gen, dev, ns, nk, n, nv)
+        passes = walk_plan(x, nk, nv, err)
+        check(lex_sorted(x, nk),
+              f"stream set ns={ns} nk={nk} n={n} n_valid={nv}: all "
+              f"{passes} passes == plain, and the key columns sorted")
+        del x
+    for ns, nk, n in ((1, 1, N), (3, 2, N), (1, 1, 1 << 12),
+                      (3, 2, 1 << 12)):
+        na = n // 2 + 5
+        x = merge_set(gen, dev, ns, n, na, n - na - 1000)
+        plan = tb.merge_plan(ns, n, nk)
+        walk_plan(x, nk, n, err, plan=plan)
+        check(lex_sorted(x, nk),
+              f"merge stage ns={ns} nk={nk} n={n}: all {len(plan)} passes "
+              f"({[name for name, _ in plan].count('bitonic_global')} K3, "
+              f"K2 at s={plan[-1][1][3]}, L={plan[-1][1][2]}) == plain, "
+              "and the keys sorted")
+        del x
+
+
+def segments(gen, dev, n: int, count: int = 10_000) -> torch.Tensor:
+    """count + 1 ragged int64 offsets over n, every 97th segment empty."""
+    cuts = torch.sort(torch.randint(0, n + 1, (count - 1,), device=dev,
+                                    generator=gen)).values
+    cuts[1::97] = cuts[0::97][:cuts[1::97].shape[0]]
+    zero, end = cuts.new_zeros(1), cuts.new_full((1,), n)
+    return torch.cat([zero, cuts, end])
+
+
+def companion_inputs(dev) -> types.SimpleNamespace:
+    """Every companion op's input, made once on the card from the seed
+    (n = 2^27 unless stated): companions_path checks the ops on these
+    tensors and companion_timings times the same calls on them."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    c = types.SimpleNamespace()
+    c.k64 = {dt: keys64(gen, dev, dt, N)
+             for dt in (torch.uint64, torch.int64, torch.float64)}
+    c.keys = cwords(gen, N, dev).view(torch.uint32)
+    kw = c.keys.view(torch.int32)
+    c.kk = (kw & 0xFFFF).view(torch.uint32)     # duplicate-heavy
+    c.runs = (kw >> 30).view(torch.uint32)      # 4 values, long runs
+    c.v = cwords(gen, N, dev)                   # u32 values
+    c.mask = (c.v & 1).bool()
+    c.v64 = cwords(gen, N, dev).to(torch.int64) * 4_000_000_011
+    # lexsort: (u32, i32, f64) -> (5, 5); 7 x u32 at 2^24 -> (8, 8)
+    c.cols = [(cwords(gen, N, dev) & 3).view(torch.uint32),
+              cwords(gen, N, dev) % 5,
+              torch.round(torch.randn(N, device=dev, generator=gen,
+                                      dtype=torch.float64) * 8)]
+    c.cols7 = [(cwords(gen, N24, dev) & 1).view(torch.uint32)
+               for _ in range(7)]
+    # merge: two sorted runs of 2^26 24-bit keys
+    half = N // 2
+    c.a, c.b = (torch.sort(kw[i * half:(i + 1) * half] & 0xFFFFFF).values
+                .view(torch.uint32) for i in range(2))
+    c.va = torch.arange(half, dtype=torch.int32, device=dev)
+    c.off = segments(gen, dev, N)
+    c.seg = torch.repeat_interleave(
+        torch.arange(c.off.shape[0] - 1, device=dev), c.off.diff())
+    return c
+
+
+def companions_path(dev, c) -> dict:
+    """Phase 10: the companion ops through the public API, on the inputs
+    of companion_inputs, each against an independent torch computation."""
+    _build.launches.clear()
+
+    # 64-bit keys: (hi, lo) at (2, 2); argsort f64 (hi, lo, idx) at (3, 3)
+    for dt, k in c.k64.items():
+        order = stable_order(image64(k))
+        check(same_bits(sortx_torch.sort(k), iv(k)[order]),
+              f"sort {dt} n={N} == stable torch.sort of the int64 image")
+        if dt == torch.float64:
+            check(torch.equal(sortx_torch.argsort(k).long(), order),
+                  f"argsort f64 n={N} == torch.sort(stable=True).indices")
+    # stable sort_kv of u64 keys, u32 values: (hi, lo, idx, v) at (4, 3)
+    k = c.k64[torch.uint64]
+    order = stable_order(image64(k))
+    ks, vs = sortx_torch.sort_kv(k, c.keys)
+    check(same_bits(ks, iv(k)[order]) and same_bits(vs, iv(c.keys)[order]),
+          f"stable sort_kv u64 keys, u32 values n={N} (4,3) == stable "
+          "torch.sort + gather")
+    del ks, vs, k, order
+
+    # 64-bit values: stable (key, idx, hi, lo) at (4, 2); unstable at
+    # ragged n (key, hi, lo) at (3, 3), which orders by (key, value)
+    order = stable_order(u64(c.kk))
+    ks, vs = sortx_torch.sort_kv(c.kk, c.v64)
+    check(same_bits(ks, iv(c.kk)[order]) and same_bits(vs, c.v64[order]),
+          f"stable sort_kv u32 keys, int64 values n={N} (4,2) == stable "
+          "torch.sort + gather")
+    rk, rv = c.kk[:RAGGED], c.v64[:RAGGED]
+    order = stable_order(u64(rk), rv ^ SIGN64)
+    ks, vs = sortx_torch.sort_kv(rk, rv, stable=False)
+    check(same_bits(ks, iv(rk)[order]) and same_bits(vs, rv[order]),
+          f"unstable sort_kv u32 keys, int64 values n={RAGGED} (3,3) == "
+          "torch.sort by (key, value)")
+    del ks, vs, rk, rv, order
+
+    check(torch.equal(sortx_torch.argsort(c.kk).long(),
+                      torch.sort(u64(c.kk), stable=True).indices),
+          f"argsort u32 n={N} == torch.sort(stable=True).indices")
+
+    want = stable_order(image64(c.cols[2]), c.cols[1].to(torch.int64),
+                        u64(c.cols[0]))
+    check(torch.equal(sortx_torch.lexsort(c.cols).long(), want),
+          f"lexsort (u32, i32, f64) n={N} (5,5) == chained stable "
+          "torch.sort passes")
+    want = stable_order(*[u64(col) for col in reversed(c.cols7)])
+    check(torch.equal(sortx_torch.lexsort(c.cols7).long(), want),
+          f"lexsort 7 x u32 n={N24} (8,8) == chained stable torch.sort "
+          "passes")
+    del want
+
+    half = N // 2
+    cat = torch.cat([iv(c.a), iv(c.b)])
+    order = torch.sort(u64(cat), stable=True).indices
+    check(same_bits(sortx_torch.merge(c.a, c.b), cat[order]),
+          f"merge of two sorted runs of {half} == torch.sort of the "
+          "concatenation")
+    mk, mv = sortx_torch.merge_kv(c.a, c.va, c.b, c.va + half)
+    check(same_bits(mk, cat[order]) and torch.equal(mv.long(), order),
+          f"merge_kv of two sorted runs of {half} == stable torch.sort of "
+          "the concatenation (a first on ties)")
+    del cat, mk, mv, order
+
+    keyed_checks(c)
+    segmented_checks(c)
+    return read_launches("companions", NETWORK + ("scan",))
+
+
+def keyed_checks(c) -> None:
+    """unique, run_length_encode, reduce_by_key, sum_by_key, partition on
+    duplicate-heavy keys at 2^27, against torch.unique, int64 sums and
+    boolean indexing."""
+    vals, counts = torch.unique(u64(c.kk), return_counts=True)
+    m = vals.shape[0]
+    uv, uc, un = sortx_torch.unique(c.kk, 1 << 17)
+    check(int(un) == m and torch.equal(u64(uv[:m]), vals)
+          and torch.equal(uc[:m].long(), counts)
+          and bool((uv[m:].view(torch.int32) == uv[m - 1].view(torch.int32)
+                    ).all()) and not bool(uc[m:].any()),
+          f"unique n={N}: {m} values == torch.unique(return_counts=True), "
+          "fill rules kept")
+    rvals, rcounts = torch.unique_consecutive(u64(c.runs), return_counts=True)
+    size = 1 << 20
+    rv, rc, rn = sortx_torch.run_length_encode(c.runs, size)
+    n_runs = min(int(rn), size)
+    check(int(rn) == rvals.shape[0]
+          and torch.equal(u64(rv[:n_runs]), rvals[:n_runs])
+          and torch.equal(rc[:n_runs].long(), rcounts[:n_runs]),
+          f"run_length_encode n={N}: {int(rn)} runs, first {n_runs} == "
+          "torch.unique_consecutive")
+    run_id = torch.repeat_interleave(
+        torch.arange(rcounts.shape[0], device=c.v.device), rcounts)
+    sums = torch.zeros(rcounts.shape[0], dtype=torch.int64,
+                       device=c.v.device)
+    sums.index_add_(0, run_id, c.v.to(torch.int64))
+    bk, bs, bn = sortx_torch.reduce_by_key(c.runs, c.v, size)
+    check(int(bn) == rvals.shape[0]
+          and torch.equal(u64(bk[:n_runs]), rvals[:n_runs])
+          and torch.equal(u64(bs[:n_runs]), sums[:n_runs] & 0xFFFFFFFF),
+          f"reduce_by_key n={N}: first {n_runs} run sums == int64 "
+          "index_add mod 2^32")
+    del run_id, sums, rvals, rcounts
+    inv = torch.unique(u64(c.kk), return_inverse=True)[1]
+    sums = torch.zeros(m, dtype=torch.int64, device=c.v.device)
+    sums.index_add_(0, inv, c.v.to(torch.int64))
+    sk, ss, sn = sortx_torch.sum_by_key(c.kk, c.v, 1 << 17)
+    check(int(sn) == m and torch.equal(u64(sk[:m]), vals)
+          and torch.equal(u64(ss[:m]), sums & 0xFFFFFFFF),
+          f"sum_by_key n={N}: {m} key sums == torch.unique + int64 "
+          "index_add mod 2^32")
+    del inv, sums
+    out, nt = sortx_torch.partition(c.keys, c.mask)
+    kw = c.keys.view(torch.int32)
+    check(int(nt) == int(c.mask.sum())
+          and torch.equal(out.view(torch.int32),
+                          torch.cat([kw[c.mask], kw[~c.mask]])),
+          f"partition n={N} == boolean indexing, selected first")
+
+
+def segmented_checks(c) -> None:
+    """sort_segments, sort_kv_segments, scan_segments and scan_by_key on
+    10^4 ragged segments at 2^27, against stable sorts of the (segment,
+    key) int64 image and int64 cumsums minus each segment's start."""
+    off, seg = c.off, c.seg
+    order = torch.sort((seg << 32) | u64(c.kk), stable=True).indices
+    check(same_bits(sortx_torch.sort_segments(c.kk, off), iv(c.kk)[order]),
+          f"sort_segments n={N}, {off.shape[0] - 1} segments == stable "
+          "torch.sort of the (segment, key) image")
+    ks, vs = sortx_torch.sort_kv_segments(c.kk, c.v, off)
+    check(same_bits(ks, iv(c.kk)[order]) and same_bits(vs, c.v[order]),
+          f"sort_kv_segments n={N} == stable torch.sort + gather")
+    del order, ks, vs
+    x64 = c.v.to(torch.int64)
+    incl = torch.cumsum(x64, 0)
+    excl = incl - x64
+    for inclusive in (False, True):
+        want = excl - excl[off[seg]] + (x64 if inclusive else 0)
+        got, totals = sortx_torch.scan_segments(c.v, off, with_totals=True,
+                                                inclusive=inclusive)
+        ext = torch.cat([incl.new_zeros(1), incl])
+        check(torch.equal(u64(got), want & 0xFFFFFFFF)
+              and torch.equal(u64(totals),
+                              (ext[off[1:]] - ext[off[:-1]]) & 0xFFFFFFFF),
+              f"scan_segments n={N} inclusive={inclusive} with totals == "
+              "int64 cumsum minus the segment start")
+    counts = torch.unique_consecutive(u64(c.runs), return_counts=True)[1]
+    start = torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts)
+    check(torch.equal(u64(sortx_torch.scan_by_key(c.runs, c.v)),
+                      (excl - excl[start]) & 0xFFFFFFFF),
+          f"scan_by_key n={N}, {counts.shape[0]} runs == int64 cumsum "
+          "minus the run start")
+
+
+def timed_pair(card: str, ours: str, run, theirs: str, torch_run, same,
+               per: int = N) -> None:
+    """Time a companion op (run) beside the torch computation of the same
+    result (torch_run) on the same tensors, and hold the outputs of the
+    last timed calls equal with same(ours, theirs)."""
+    out = {}
+
+    def timed(key, fn):
+        def call():
+            out[key] = fn()
+        return time_ms(call)
+    time_line(card, f"sortx_torch.{ours}", timed("ours", run), per)
+    time_line(card, theirs, timed("theirs", torch_run), per)
+    torch.cuda.synchronize()
+    check(same(out["ours"], out["theirs"]),
+          f"timed sortx_torch.{ours} == {theirs}")
+
+
+def companion_timings(dev, card: str, err: dict, c) -> None:
+    """Phase 11: CUDA-event medians of each companion op beside the torch
+    computation of its result, on the tensors companions_path checked,
+    each timed output held against the torch one; then K1-K3 at the
+    widest stream sets beside their plain versions."""
+    torch.cuda.empty_cache()
+
+    def values(g, w):       # for the ops that return (keys, values)
+        return torch.equal(iv(g[1]), w)
+
+    for dt, k in c.k64.items():
+        img = image64(k)
+        timed_pair(card, f"sort {dt} n={N}", lambda: sortx_torch.sort(k),
+                   f"torch.sort of the int64 image ({dt}) n={N}",
+                   lambda: torch.sort(img).values,
+                   lambda g, w: torch.equal(image64(g), w))
+        if dt == torch.float64:
+            timed_pair(card, f"argsort f64 n={N}",
+                       lambda: sortx_torch.argsort(k),
+                       f"torch.sort(stable=True).indices, int64 image n={N}",
+                       lambda: torch.sort(img, stable=True).indices,
+                       lambda g, w: torch.equal(g.long(), w))
+        del img
+    k = c.k64[torch.uint64]
+    img = image64(k)
+    kw = c.keys.view(torch.int32)
+    timed_pair(card, f"sort_kv u64 keys, u32 values stable n={N}",
+               lambda: sortx_torch.sort_kv(k, c.keys),
+               f"torch.sort(stable=True) of the int64 image + gather n={N}",
+               lambda: kw[torch.sort(img, stable=True).indices],
+               values)
+    del img
+    kk = c.kk.view(torch.int32)     # 16-bit: signed order == unsigned
+    timed_pair(card, f"sort_kv u32 keys, int64 values stable n={N}",
+               lambda: sortx_torch.sort_kv(c.kk, c.v64),
+               f"torch.sort(stable=True) + gather of int64 values n={N}",
+               lambda: c.v64[torch.sort(kk, stable=True).indices],
+               values)
+    rk, rv, rkl = c.kk[:RAGGED], c.v64[:RAGGED], kk[:RAGGED].to(torch.int64)
+    timed_pair(card, f"sort_kv u32 keys, int64 values unstable n={RAGGED}",
+               lambda: sortx_torch.sort_kv(rk, rv, stable=False),
+               f"chained stable torch.sort by (key, value) + gather "
+               f"n={RAGGED}",
+               lambda: rv[stable_order(rkl, rv ^ SIGN64)],
+               values, RAGGED)
+    del rkl
+    timed_pair(card, f"argsort u32 n={N}", lambda: sortx_torch.argsort(c.kk),
+               f"torch.sort(stable=True).indices int32 n={N}",
+               lambda: torch.sort(kk, stable=True).indices,
+               lambda g, w: torch.equal(g.long(), w))
+    imgs = [image64(c.cols[2]), c.cols[1].to(torch.int64), u64(c.cols[0])]
+    timed_pair(card, f"lexsort (u32, i32, f64) n={N}",
+               lambda: sortx_torch.lexsort(c.cols),
+               f"chained stable torch.sort, 3 int64 images n={N}",
+               lambda: stable_order(*imgs),
+               lambda g, w: torch.equal(g.long(), w))
+    imgs = [u64(col) for col in reversed(c.cols7)]
+    timed_pair(card, f"lexsort 7 x u32 n={N24}",
+               lambda: sortx_torch.lexsort(c.cols7),
+               f"chained stable torch.sort, 7 int64 images n={N24}",
+               lambda: stable_order(*imgs),
+               lambda g, w: torch.equal(g.long(), w), N24)
+    del imgs
+
+    half = N // 2
+    ia, ib = iv(c.a), iv(c.b)       # 24-bit: signed order == unsigned
+    timed_pair(card, f"merge 2 x {half}",
+               lambda: sortx_torch.merge(c.a, c.b),
+               f"torch.sort of the concatenation int32 n={N}",
+               lambda: torch.sort(torch.cat([ia, ib])).values,
+               lambda g, w: torch.equal(iv(g), w))
+    vb = c.va + half
+    timed_pair(card, f"merge_kv 2 x {half}",
+               lambda: sortx_torch.merge_kv(c.a, c.va, c.b, vb),
+               "torch.sort(stable=True) + gather of the concatenation "
+               f"n={N}",
+               lambda: torch.cat([c.va, vb])[
+                   torch.sort(torch.cat([ia, ib]), stable=True).indices],
+               values)
+    del vb
+
+    keyed_timings(card, c)
+    segmented_timings(card, c)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    for ns, nk, n in ((5, 5, N24), (8, 8, N24)):
+        x0 = wide_set(gen, dev, ns, nk, n, n)
+        x = x0.clone()
+        lb, s = tb.block_log(ns), n.bit_length() - 1
+        restore = lambda: x.copy_(x0)   # noqa: E731
+        for name, args in (
+                ("bitonic_block", (n, nk, lb)),
+                ("bitonic_tail", (n, nk, lb, s)),
+                ("bitonic_global", (n, nk, s, s - 1, s - tb.f_max(ns)))):
+            fn, plain = tb.KERNELS[name]
+            timed_kernel(card, f"{name} ns={ns} nk={nk} n={n} "
+                         f"args={args[2:]}", lambda: fn(x, *args),
+                         lambda: plain(x, *args) or x, err, name,
+                         setup=restore)
+        del x, x0
+
+
+def keyed_timings(card: str, c) -> None:
+    """The keyed ops beside torch.unique / unique_consecutive with int64
+    sums, and boolean indexing."""
+    kk, runs, v64 = iv(c.kk), iv(c.runs), c.v.to(torch.int64)
+    size = 1 << 20
+
+    # counts and sums alike compare as u32 words against int64 mod 2^32
+    def first_runs(g, w):
+        n_runs = min(int(g[2]), size)
+        return (int(g[2]) == w[0].shape[0]
+                and torch.equal(iv(g[0][:n_runs]), w[0][:n_runs])
+                and torch.equal(u64(g[1][:n_runs]),
+                                w[1][:n_runs] & 0xFFFFFFFF))
+
+    def run_sums():
+        vals, counts = torch.unique_consecutive(runs, return_counts=True)
+        incl = torch.cumsum(v64, 0)
+        ends = incl[torch.cumsum(counts, 0) - 1]
+        return vals, ends - torch.cat([ends.new_zeros(1), ends[:-1]])
+
+    def key_sums():
+        vals, inv = torch.unique(kk, return_inverse=True)
+        sums = torch.zeros(vals.shape[0], dtype=torch.int64, device=kk.device)
+        return vals, sums.index_add_(0, inv, v64)
+
+    def all_keys(g, w):
+        m = w[0].shape[0]
+        return (int(g[2]) == m and torch.equal(iv(g[0][:m]), w[0])
+                and torch.equal(u64(g[1][:m]), w[1] & 0xFFFFFFFF))
+
+    timed_pair(card, f"unique n={N}", lambda: sortx_torch.unique(c.kk, 1 << 17),
+               f"torch.unique(return_counts=True) int32 n={N}",
+               lambda: torch.unique(kk, return_counts=True), all_keys)
+    timed_pair(card, f"run_length_encode n={N}",
+               lambda: sortx_torch.run_length_encode(c.runs, size),
+               f"torch.unique_consecutive(return_counts=True) int32 n={N}",
+               lambda: torch.unique_consecutive(runs, return_counts=True),
+               first_runs)
+    timed_pair(card, f"reduce_by_key n={N}",
+               lambda: sortx_torch.reduce_by_key(c.runs, c.v, size),
+               f"torch.unique_consecutive + int64 cumsum at the run ends "
+               f"n={N}", run_sums, first_runs)
+    timed_pair(card, f"sum_by_key n={N}",
+               lambda: sortx_torch.sum_by_key(c.kk, c.v, 1 << 17),
+               f"torch.unique(return_inverse=True) + int64 index_add n={N}",
+               key_sums, all_keys)
+    kw = c.keys.view(torch.int32)
+    timed_pair(card, f"partition n={N}",
+               lambda: sortx_torch.partition(c.keys, c.mask),
+               f"torch.cat(x[mask], x[~mask]) int32 n={N}",
+               lambda: torch.cat([kw[c.mask], kw[~c.mask]]),
+               lambda g, w: torch.equal(iv(g[0]), w))
+
+
+def segmented_timings(card: str, c) -> None:
+    """The segmented ops beside a torch.sort of the (segment, key) int64
+    image and int64 cumsums minus each segment's or run's start."""
+    off, seg = c.off, c.seg
+    img = (seg << 32) | u64(c.kk)
+    v64 = c.v.to(torch.int64)
+    timed_pair(card, f"sort_segments n={N}, 10^4 segments",
+               lambda: sortx_torch.sort_segments(c.kk, off),
+               f"torch.sort of the (segment, key) int64 image n={N}",
+               lambda: torch.sort(img).values,
+               lambda g, w: torch.equal((seg << 32) | u64(g), w))
+    timed_pair(card, f"sort_kv_segments n={N}",
+               lambda: sortx_torch.sort_kv_segments(c.kk, c.v, off),
+               f"torch.sort(stable=True) of the (segment, key) image + "
+               f"gather n={N}",
+               lambda: c.v[torch.sort(img, stable=True).indices],
+               lambda g, w: torch.equal(iv(g[1]), w))
+    del img
+
+    def minus_start(start):
+        def run():
+            excl = torch.cumsum(v64, 0) - v64
+            return excl - excl[start()]
+        return run
+
+    def runs_start():
+        counts = torch.unique_consecutive(iv(c.runs), return_counts=True)[1]
+        return torch.repeat_interleave(torch.cumsum(counts, 0) - counts,
+                                       counts)
+
+    def wrapped(g, w):
+        return torch.equal(u64(g), w & 0xFFFFFFFF)
+    timed_pair(card, f"scan_segments n={N}, 10^4 segments",
+               lambda: sortx_torch.scan_segments(c.v, off),
+               f"int64 torch.cumsum minus the segment start n={N}",
+               minus_start(lambda: off[seg]), wrapped)
+    timed_pair(card, f"scan_by_key n={N}",
+               lambda: sortx_torch.scan_by_key(c.runs, c.v),
+               f"int64 torch.cumsum minus the run start "
+               f"(unique_consecutive) n={N}", minus_start(runs_start), wrapped)
+
+
 def time_line(card: str, what: str, times, per=None) -> float:
     """Print the median of times (ms), its rate and its range."""
     ms = statistics.median(times)
@@ -569,7 +1123,7 @@ def timings(dev, card: str, err: dict) -> dict:
                 ("bitonic_block", (N, nk, lb)),
                 ("bitonic_tail", (N, nk, lb, log_n)),
                 ("bitonic_global",
-                 (N, nk, log_n, log_n - 1, log_n - tb.F_MAX))):
+                 (N, nk, log_n, log_n - 1, log_n - tb.f_max(ns)))):
             fn, plain = tb.KERNELS[name]
             k_ms = time_ms(lambda: fn(x, *args), restore)
             got = x.clone()       # the kernel's output of the last run
@@ -751,6 +1305,7 @@ def main() -> None:
     card = header()
     dev = torch.device("cuda", 0)
     err = kernel_checks(dev)
+    companion_walks(dev, err)
     # each kernel's launches are read from the path it belongs to
     counts = main_path(dev)
     ms = timings(dev, card, err)    # before the other paths' allocations
@@ -759,6 +1314,10 @@ def main() -> None:
     counts["histogram"] = select_path(dev)["histogram"]
     counts["piece_mover"] = movers_path(dev)["piece_mover"]
     ms.update(slice2_timings(dev, card, err))
+    companions = companion_inputs(dev)
+    companions_path(dev, companions)
+    companion_timings(dev, card, err, companions)
+    del companions
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": counts[name],
                 "max_abs_err": err[name], "ms": ms[name][0],

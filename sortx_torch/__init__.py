@@ -8,12 +8,19 @@ schedules run as plain PyTorch. This package never imports jax or sortx.
 Layer map:
   sort / sort_kv / scan / entry    ops/sort.py, ops/scan.py, entry.py
   sort_rows / sort_kv_rows         ops/rows.py
-  histogram / kth_value / median / top_k / sort_u64
-                                   ops/histogram.py, ops/select.py,
+  histogram / kth_value / median / top_k
+                                   ops/histogram.py, ops/select.py
+  sort_u64 / sort_kv_u64 / argsort / lexsort
                                    ops/extras.py
+  merge / merge_kv                 ops/merge.py
+  partition / reduce_by_key / sum_by_key / run_length_encode /
+  searchsorted / is_sorted / unique
+                                   ops/keyed.py, ops/unique.py
+  sort_segments / sort_kv_segments / scan_segments / scan_by_key
+                                   ops/segmented.py, ops/segscan.py
   engines                          ops/sort_network.py, ops/sort_hybrid.py,
                                    ops/sort_host.py
-  bitonic network pass plan        ops/bitonic.py
+  bitonic network pass plans       ops/bitonic.py
   kernel wrappers                  ops/bitonic.py, ops/scan.py,
                                    ops/radix_kernels.py, ops/shuffle.py
   kernels                          csrc/bitonic.cu (K1-K3), csrc/scan.cu
@@ -23,9 +30,17 @@ Layer map:
 
 from .config import Config
 from .entry import entry
-from .ops import (histogram, kth_value, median, scan, sort, sort_kv,
-                  sort_kv_rows, sort_rows, sort_u64, top_k)
+from .ops import (argsort, histogram, is_sorted, kth_value, lexsort, median,
+                  merge, merge_kv, partition, reduce_by_key,
+                  run_length_encode, scan, scan_by_key, scan_segments,
+                  searchsorted, sort, sort_kv, sort_kv_rows, sort_kv_segments,
+                  sort_kv_u64, sort_rows, sort_segments, sort_u64, sum_by_key,
+                  top_k, unique)
 
-__all__ = ["Config", "entry", "histogram", "kth_value", "median", "scan",
-           "sort", "sort_kv", "sort_kv_rows", "sort_rows", "sort_u64",
-           "top_k"]
+__all__ = ["Config", "argsort", "entry", "histogram", "is_sorted",
+           "kth_value", "lexsort", "median", "merge", "merge_kv",
+           "partition", "reduce_by_key", "run_length_encode", "scan",
+           "scan_by_key", "scan_segments", "searchsorted", "sort",
+           "sort_kv", "sort_kv_rows", "sort_kv_segments", "sort_kv_u64",
+           "sort_rows", "sort_segments", "sort_u64", "sum_by_key", "top_k",
+           "unique"]

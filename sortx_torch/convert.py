@@ -5,8 +5,10 @@ form both packages are fed from in the tests) and configuration (a
 ``sortx.Config``, read by attribute so that nothing here imports the JAX
 package).
 
-Unsigned 32-bit and bfloat16 arrays cross through same-width integer
-views, so every bit pattern (NaN payloads, -0.0) round-trips exactly.
+Unsigned 32- and 64-bit and bfloat16 arrays cross through same-width
+integer views, so every bit pattern (NaN payloads, -0.0) round-trips
+exactly; the other dtypes (int64 and float64 included) cross as they
+are, which keeps their bits too.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ __all__ = ["to_torch", "to_numpy", "config_from_sortx"]
 
 # numpy dtype name -> (same-width numpy int view, torch int view, torch dtype)
 _VIEWS = {
+    "uint64": (np.int64, torch.int64, torch.uint64),
     "uint32": (np.int32, torch.int32, torch.uint32),
     "uint16": (np.int16, torch.int16, torch.uint16),
     "bfloat16": (np.int16, torch.int16, torch.bfloat16),

@@ -23,6 +23,18 @@
 // network's code (a runtime flag in the per-pair direction cost both
 // ~6%, measured).
 //
+// The merge stage (bitonic_merge_streams, the TPU's merge) is one
+// ascending stage s = log2 n over a bitonic sequence: K3 passes for
+// layers s-1..L under force_asc, then K2 under force_asc, which there
+// may also take s == L (the whole merge inside one block).
+//
+// Stream sets: the 7 narrow sets (1-4 streams, 1-2 keys) run every
+// mode; the wide sets of the 64-bit, argsort and lexsort paths ((3,3),
+// (4,3), (5,2), (4,4), (5,5), (6,6), (7,7), (8,8)) run the full
+// network only, so rows mode and forced K2 are not instantiated for
+// them. Above 4 streams K3 keeps at most 2^3 elements per thread and
+// stream (v[8][8] = 64 words), not 2^4, so it does not spill.
+//
 // What bounds them on the card: every pass reads and writes each of
 // the NS streams once (8 * NS bytes per element), and the network's
 // cost is the number of passes over device memory. The design cuts
@@ -219,13 +231,24 @@ cudaError_t launch_block(Kernel kernel, int NSTREAMS, uint32_t* x,
   return cudaGetLastError();
 }
 
+// The narrow stream sets, which also run rows mode and forced K2
+// (ops/bitonic.py NARROW_SETS).
+constexpr bool narrow(int ns, int nk) { return ns <= 4 && nk <= 2; }
+
+// Most layers one K3 pass keeps in registers for NS streams
+// (ops/bitonic.py f_max).
+constexpr int f_max(int ns) { return ns <= 4 ? 4 : 3; }
+
 // K1, in rows mode if row_log > 0.
 template <int NS, int NK>
 cudaError_t launch_k1(uint32_t* x, long long ext, long long stride,
                       int log_block, int row_log, cudaStream_t stream) {
   if (row_log > 0) {
-    return launch_block(bitonic_block_kernel<NS, NK, true>, NS, x, ext,
-                        stride, log_block, stream, row_log);
+    if constexpr (narrow(NS, NK)) {
+      return launch_block(bitonic_block_kernel<NS, NK, true>, NS, x, ext,
+                          stride, log_block, stream, row_log);
+    }
+    return cudaErrorInvalidValue;
   }
   return launch_block(bitonic_block_kernel<NS, NK, false>, NS, x, ext, stride,
                       log_block, stream, 0);
@@ -237,8 +260,11 @@ cudaError_t launch_k2(uint32_t* x, long long ext, long long stride,
                       int log_block, int s, bool force_asc,
                       cudaStream_t stream) {
   if (force_asc) {
-    return launch_block(bitonic_tail_kernel<NS, NK, true>, NS, x, ext, stride,
-                        log_block, stream, s);
+    if constexpr (narrow(NS, NK)) {
+      return launch_block(bitonic_tail_kernel<NS, NK, true>, NS, x, ext,
+                          stride, log_block, stream, s);
+    }
+    return cudaErrorInvalidValue;
   }
   return launch_block(bitonic_tail_kernel<NS, NK, false>, NS, x, ext, stride,
                       log_block, stream, s);
@@ -271,24 +297,36 @@ cudaError_t launch_global(uint32_t* x, long long ext, long long stride, int s,
     case 3:
       return launch_global_f<NS, NK, 3>(x, ext, stride, s, j_lo, asc, stream);
     case 4:
-      return launch_global_f<NS, NK, 4>(x, ext, stride, s, j_lo, asc, stream);
+      if constexpr (f_max(NS) >= 4) {
+        return launch_global_f<NS, NK, 4>(x, ext, stride, s, j_lo, asc,
+                                          stream);
+      }
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Every stream set of the sort path: NS in 1..4 streams, NK in 1..2 keys.
-#define SORTX_DISPATCH_STREAMS(ns, nk, ...)                   \
-  switch ((ns) * 4 + (nk)) {                                  \
-    case 5: { constexpr int NS = 1, NK = 1; return __VA_ARGS__; }  \
-    case 9: { constexpr int NS = 2, NK = 1; return __VA_ARGS__; }  \
-    case 10: { constexpr int NS = 2, NK = 2; return __VA_ARGS__; } \
-    case 13: { constexpr int NS = 3, NK = 1; return __VA_ARGS__; } \
-    case 14: { constexpr int NS = 3, NK = 2; return __VA_ARGS__; } \
-    case 17: { constexpr int NS = 4, NK = 1; return __VA_ARGS__; } \
-    case 18: { constexpr int NS = 4, NK = 2; return __VA_ARGS__; } \
-    default: return cudaErrorInvalidValue;                    \
+// Every stream set of the library: the narrow sets (NS in 1..4 streams,
+// NK in 1..2 keys) and the wide sets listed at the top of the file. The
+// cases must match ops/bitonic.py STREAM_SETS.
+#define SORTX_CASE(ns_, nk_, ...)                              \
+  case (ns_) * 16 + (nk_): {                                   \
+    constexpr int NS = (ns_), NK = (nk_);                      \
+    return __VA_ARGS__;                                        \
+  }
+#define SORTX_DISPATCH_STREAMS(ns, nk, ...)                    \
+  switch ((ns) * 16 + (nk)) {                                  \
+    SORTX_CASE(1, 1, __VA_ARGS__) SORTX_CASE(2, 1, __VA_ARGS__) \
+    SORTX_CASE(2, 2, __VA_ARGS__) SORTX_CASE(3, 1, __VA_ARGS__) \
+    SORTX_CASE(3, 2, __VA_ARGS__) SORTX_CASE(4, 1, __VA_ARGS__) \
+    SORTX_CASE(4, 2, __VA_ARGS__) SORTX_CASE(3, 3, __VA_ARGS__) \
+    SORTX_CASE(4, 3, __VA_ARGS__) SORTX_CASE(5, 2, __VA_ARGS__) \
+    SORTX_CASE(4, 4, __VA_ARGS__) SORTX_CASE(5, 5, __VA_ARGS__) \
+    SORTX_CASE(6, 6, __VA_ARGS__) SORTX_CASE(7, 7, __VA_ARGS__) \
+    SORTX_CASE(8, 8, __VA_ARGS__)                              \
+    default: return cudaErrorInvalidValue;                     \
   }
 
 extern "C" int sortx_bitonic_block(void* x, long long ext, long long stride,
@@ -305,7 +343,10 @@ extern "C" int sortx_bitonic_block(void* x, long long ext, long long stride,
 extern "C" int sortx_bitonic_tail(void* x, long long ext, long long stride,
                                   int ns, int nk, int log_block, int s,
                                   int force_asc, void* stream) {
-  if (s <= log_block) return cudaErrorInvalidValue;
+  // s == L only for the merge stage, which runs ascending
+  if (s < log_block || (s == log_block && !force_asc)) {
+    return cudaErrorInvalidValue;
+  }
   auto* p = static_cast<uint32_t*>(x);
   auto st = static_cast<cudaStream_t>(stream);
   SORTX_DISPATCH_STREAMS(ns, nk,

@@ -1,13 +1,24 @@
-"""Sort, scan and selection operators and the kernels under them."""
+"""Sort, scan, selection, merge and grouping operators and the kernels
+under them."""
 
-from .extras import sort_u64
+from .extras import argsort, lexsort, sort_kv_u64, sort_u64
 from .histogram import histogram
+from .keyed import (is_sorted, partition, reduce_by_key, run_length_encode,
+                    searchsorted, sum_by_key)
+from .merge import merge, merge_kv
 from .rows import sort_kv_rows, sort_rows
 from .scan import scan
+from .segmented import sort_kv_segments, sort_segments
+from .segscan import scan_by_key, scan_segments
 from .select import kth_value, median, top_k
 from .shuffle import apply_runs, build_piece_plan, move_runs
 from .sort import sort, sort_kv
+from .unique import unique
 
-__all__ = ["apply_runs", "build_piece_plan", "histogram", "kth_value",
-           "median", "move_runs", "scan", "sort", "sort_kv",
-           "sort_kv_rows", "sort_rows", "sort_u64", "top_k"]
+__all__ = ["apply_runs", "argsort", "build_piece_plan", "histogram",
+           "is_sorted", "kth_value", "lexsort", "median", "merge",
+           "merge_kv", "move_runs", "partition", "reduce_by_key",
+           "run_length_encode", "scan", "scan_by_key", "scan_segments",
+           "searchsorted", "sort", "sort_kv", "sort_kv_rows",
+           "sort_kv_segments", "sort_kv_u64", "sort_rows", "sort_segments",
+           "sort_u64", "sum_by_key", "top_k", "unique"]

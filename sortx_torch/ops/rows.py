@@ -64,7 +64,7 @@ def sort_kv_rows(keys: torch.Tensor, values: torch.Tensor, *,
                  descending: bool = False, config: Config | None = None):
     """Stable per-row key-value sort of [B, L] tensors: values follow
     keys, and equal keys keep their in-row order. Values may be any 8-,
-    16- or 32-bit dtype."""
+    16-, 32- or 64-bit dtype."""
     cfg = config or Config()
     _check(keys)
     if values.shape != keys.shape:
@@ -76,5 +76,5 @@ def sort_kv_rows(keys: torch.Tensor, values: torch.Tensor, *,
     v, undo_v = _value_words(values.contiguous())
     if descending:
         k = ~k
-    ks, vs = _rows_engine(cfg, keys)([k, v])
-    return undo(~ks if descending else ks), undo_v(vs)
+    ks, *vs = _rows_engine(cfg, keys)([k, *v])
+    return undo(~ks if descending else ks), undo_v(*vs)

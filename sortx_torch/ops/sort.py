@@ -5,18 +5,22 @@ u32 / i32 / f32 map to u32 words whose unsigned order is the keys'
 natural order (f32: a total order with NaNs at the extremes by sign);
 16-bit keys widen exactly first. ``descending`` complements the
 participating key bits around an ascending sort, so it stays stable.
-Values may be any 8-, 16- or 32-bit dtype and ride as 32-bit words.
+Values may be any 8-, 16-, 32- or 64-bit dtype and ride as one 32-bit
+word, or as a (hi, lo) pair of words.
+
+64-bit keys (u64 / i64 / f64) map to a (hi, lo) pair of u32 words whose
+lexicographic order is the keys' order (:func:`_to_radix_u64`; f64 with
+the same total order as f32) and sort through ``sort_u64`` /
+``sort_kv_u64`` (ops/extras.py): one network pass over both words.
 
 Engines: "network" (the bitonic network), "hybrid" (the sample sort,
-always stable), "host" (``torch.sort``); see ``config.py``.
+always stable; 64-bit values take the host engine, as ``sortx`` sends
+them to XLA), "host" (``torch.sort``); see ``config.py``.
 
 Ordered inputs skip the engines: keys whose sort key is already
 nondecreasing come back as they are, and a full-width keys-only input
 that is nonincreasing only flips (equal keys are indistinguishable).
 One host sync reads both flags.
-
-64-bit keys and values are not ported yet (ROADMAP Queue 1 item 7) and
-raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..config import Config, resolve_engine
-from ..utils.words import SIGN, monotone
+from ..utils.words import SIGN, join64, monotone, split64
 from .capacity import check_device_capacity, network_bytes
 from .sort_host import sort_host, sort_kv_host
 from .sort_hybrid import hybrid_bytes, sort_hybrid, sort_kv_hybrid
@@ -37,24 +41,21 @@ _KEYS32 = (torch.uint32, torch.int32, torch.float32)
 _WIDEN = {torch.uint16: torch.uint32, torch.int16: torch.int32,
           torch.float16: torch.float32, torch.bfloat16: torch.float32}
 _DTYPES64 = (torch.uint64, torch.int64, torch.float64)
-_NOT_PORTED_64 = ("64-bit {what} are not ported yet (ROADMAP Queue 1 "
-                  "item 7), got {dtype}")
 
 
 def _check_key_dtype(dt: torch.dtype, what: str = "sort",
                      allow64: bool = False) -> None:
-    """The key dtypes of ``sortx``'s ``_check_key_dtype``: 64-bit keys,
-    which ``sort`` and ``sort_kv`` accept there (``allow64``), are not
-    ported yet; the other ops reject them as ``sortx`` does."""
+    """The key dtypes of ``sortx``'s ``_check_key_dtype``: 64-bit keys
+    where ``allow64`` (``sort``, ``sort_kv``, ``argsort``, ``lexsort``)."""
     if dt in _KEYS32 or dt in _WIDEN:
         return
     if dt in _DTYPES64:
         if allow64:
-            raise NotImplementedError(_NOT_PORTED_64.format(what="keys",
-                                                            dtype=dt))
+            return
         raise TypeError(f"{what} does not support 64-bit keys (got {dt})")
+    wide = " or 64-bit u64/i64/f64" if allow64 else ""
     raise TypeError(f"{what} supports u32/i32/f32 (or 16-bit "
-                    f"u16/i16/f16/bf16) keys, got {dt}")
+                    f"u16/i16/f16/bf16{wide}) keys, got {dt}")
 
 
 def _check_keys(keys: torch.Tensor, allow64: bool = False) -> None:
@@ -63,16 +64,50 @@ def _check_keys(keys: torch.Tensor, allow64: bool = False) -> None:
     _check_key_dtype(keys.dtype, allow64=allow64)
 
 
-def _resolve_sort_bits(keys: torch.Tensor, sort_bits: int | None) -> int:
-    """None -> 32; validate the explicit cases."""
+def _resolve_sort_bits(keys: torch.Tensor, sort_bits: int | None,
+                       what: str = "sort") -> int:
+    """None -> the key dtype's full width (32 or 64); validate the
+    explicit cases."""
+    is64 = keys.dtype in _DTYPES64
     if sort_bits is None:
-        return 32
+        return 64 if is64 else 32
+    if is64:
+        if sort_bits != 64:
+            raise ValueError(f"{what}: 64-bit keys sort on the full 64 bits "
+                             f"(sort_bits=64 or None), got {sort_bits}")
+        return 64
     if not 1 <= sort_bits <= 32:
         raise ValueError("sort_bits must be in 1..32")
     if keys.dtype != torch.uint32 and sort_bits != 32:
         raise ValueError("partial sort_bits requires uint32 keys "
                          "(the reference's contract, Pprims.cpp:253)")
     return sort_bits
+
+
+def _widen_float16(keys: torch.Tensor) -> torch.Tensor:
+    """f16 / bf16 keys as float32, NaNs as ``sortx`` (XLA) widens them:
+    bf16 by its bits shifted up, f16 NaNs quieted with their payload kept
+    (torch's own conversion does neither)."""
+    b = keys.view(torch.int16).to(torch.int32)
+    if keys.dtype == torch.bfloat16:
+        return (b << 16).view(torch.float32)
+    nan = (b & SIGN) | 0x7FC00000 | ((b & 0x3FF) << 13)
+    return torch.where(keys.isnan(), nan,
+                       keys.to(torch.float32).view(torch.int32)
+                       ).view(torch.float32)
+
+
+def _narrow_float32(f: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """float32 values that are exact in ``dt`` (f16 / bf16) back to it,
+    NaNs as XLA narrows them: bf16 to the quiet NaN of their sign, f16
+    quieted with the top payload bits kept."""
+    bits = f.view(torch.int32)
+    nan = (bits >> 16) & 0x8000
+    nan = nan | (0x7FC0 if dt == torch.bfloat16
+                 else 0x7E00 | ((bits >> 13) & 0x3FF))
+    out = torch.where(f.isnan(), nan,
+                      f.to(dt).view(torch.int16).to(torch.int32))
+    return out.to(torch.int16).view(dt)
 
 
 def _to_radix_u32(keys: torch.Tensor):
@@ -84,6 +119,9 @@ def _to_radix_u32(keys: torch.Tensor):
         # back through the int16 of the same low bits
         return k, lambda u: (((u & 0xFFFF) ^ 0x8000) - 0x8000).to(
             torch.int16).view(torch.uint16)
+    if dt in (torch.float16, torch.bfloat16):
+        k, undo_wide = _to_radix_u32(_widen_float16(keys))
+        return k, lambda u: _narrow_float32(undo_wide(u), dt)
     wide = _WIDEN.get(dt)
     if wide is not None:
         k, undo_wide = _to_radix_u32(keys.to(wide))
@@ -98,16 +136,38 @@ def _to_radix_u32(keys: torch.Tensor):
     return fwd, lambda u: (u ^ ((~u >> 31) | SIGN)).view(torch.float32)
 
 
+def _to_radix_u64(keys: torch.Tensor):
+    """Map 64-bit keys to (hi, lo) u32 words (int32) whose unsigned
+    lexicographic order is the keys' order: u64 as they are, i64 with the
+    top sign bit flipped, f64 by the f32 transform on the 64-bit image
+    (all bits of negatives, the sign bit of the rest). Returns (hi, lo,
+    undo) with undo(hi, lo) -> keys' dtype; the words are ``sortx``'s."""
+    dt = keys.dtype
+    hi, lo = split64(keys.view(torch.int64))
+    if dt == torch.uint64:
+        return hi, lo, lambda h, l: join64(h, l).view(torch.uint64)
+    if dt == torch.int64:
+        return hi ^ SIGN, lo, lambda h, l: join64(h ^ SIGN, l)
+    neg = hi >> 31                     # all ones where the sign bit is set
+
+    def undo(h, l):
+        was_neg = ~h >> 31             # negatives map below the sign bit
+        return join64(h ^ (was_neg | SIGN), l ^ was_neg).view(torch.float64)
+
+    return hi ^ (neg | SIGN), lo ^ neg, undo
+
+
 def _value_words(values: torch.Tensor):
-    """Values as 32-bit words (int32). Returns (words, undo)."""
+    """Values as 32-bit word streams (int32): one word, or the (hi, lo)
+    of a 64-bit value. Returns (tuple of words, undo(*words))."""
     size = values.element_size()
     if size == 8:
-        raise NotImplementedError(_NOT_PORTED_64.format(what="values",
-                                                        dtype=values.dtype))
+        return (split64(values.view(torch.int64)),
+                lambda h, l: join64(h, l).view(values.dtype))
     if size == 4:
-        return values.view(torch.int32), lambda w: w.view(values.dtype)
+        return (values.view(torch.int32),), lambda w: w.view(values.dtype)
     narrow = {1: torch.int8, 2: torch.int16}[size]
-    return (values.view(narrow).to(torch.int32),
+    return ((values.view(narrow).to(torch.int32),),
             lambda w: w.to(narrow).view(values.dtype))
 
 
@@ -127,7 +187,8 @@ def sort(keys: torch.Tensor, sort_bits: int | None = None, *,
     """Stable sort of 1-D keys by their low ``sort_bits`` bits.
 
     ``sort_bits=None`` means the full key width; partial widths need
-    uint32 keys. The result lives on the keys' device.
+    uint32 keys, and 64-bit keys sort on all 64. The result lives on the
+    keys' device.
     """
     cfg = config or Config()
     _check_keys(keys, allow64=True)
@@ -135,6 +196,11 @@ def sort(keys: torch.Tensor, sort_bits: int | None = None, *,
     n = keys.shape[0]
     if n <= 1:
         return keys
+    if sort_bits == 64:
+        from .extras import sort_u64_words
+
+        hi, lo, undo64 = _to_radix_u64(keys.contiguous())
+        return undo64(*sort_u64_words(hi, lo, descending, cfg))
     k, undo = _to_radix_u32(keys.contiguous())
     if descending:
         k = k ^ _order_mask(sort_bits)
@@ -178,6 +244,13 @@ def sort_kv(keys: torch.Tensor, values: torch.Tensor,
     n = keys.shape[0]
     if n <= 1:
         return keys, values
+    if sort_bits == 64:
+        from .extras import sort_kv_u64_words
+
+        hi, lo, undo64 = _to_radix_u64(keys.contiguous())
+        h2, l2, vs = sort_kv_u64_words(hi, lo, values.contiguous(), stable,
+                                       descending, cfg)
+        return undo64(h2, l2), vs
     k, undo = _to_radix_u32(keys.contiguous())
     v, undo_v = _value_words(values.contiguous())
     if descending:
@@ -185,19 +258,21 @@ def sort_kv(keys: torch.Tensor, values: torch.Tensor,
     engine = resolve_engine(cfg, keys)
     if monotone(_sort_key(k, sort_bits))[0]:
         ks, vs = k, v
-    elif engine == "host":
+    elif engine == "host" or (engine == "hybrid" and len(v) > 1):
         ks, vs = sort_kv_host(k, v, sort_bits)
     elif engine == "hybrid":
         # always stable, whatever ``stable`` says
         check_device_capacity(
             hybrid_bytes(n, 2 if sort_bits >= 32 else 3, cfg),
             keys.device, f"hybrid sort_kv of n={n}")
-        ks, vs = sort_kv_hybrid(k, v, sort_bits, cfg)
+        ks, vs = sort_kv_hybrid(k, v[0], sort_bits, cfg)
+        vs = (vs,)
     else:
         check_device_capacity(
-            network_bytes(n, network_streams(n, sort_bits, True, stable)),
+            network_bytes(n, network_streams(n, sort_bits, True, stable,
+                                             len(v))),
             keys.device, f"sort_kv of n={n}")
         ks, vs = sort_kv_network(k, v, sort_bits, stable=stable)
     if descending:
         ks = ks ^ _order_mask(sort_bits)
-    return undo(ks), undo_v(vs)
+    return undo(ks), undo_v(*vs)

@@ -255,4 +255,5 @@ def sort_kv_hybrid(keys: torch.Tensor, values: torch.Tensor,
         last_dispatch = "hybrid-overflow" if out is None else "hybrid"
         if out is not None:
             return out[-2], out[-1]
-    return sort_kv_network(keys, values, sort_bits, stable=True)
+    ks, (vs,) = sort_kv_network(keys, (values,), sort_bits, stable=True)
+    return ks, vs

@@ -14,6 +14,10 @@ sets, by case (comparator keys first):
   partial-bit KV, packed       (composite, key, value)     1 key
   partial-bit KV               (masked, idx, key, value)   2 keys
 
+A 64-bit value rides as two words, (hi, lo), where a KV set has one
+value word: one more stream, and under unstable KV at ragged n one more
+key, (key, hi, lo).
+
 The row sorts (``sort_rows``, the hybrid engine's phases) run the
 network in rows mode over (key) or (key, pos, payloads...) rows:
 :func:`network_rows`.
@@ -47,15 +51,19 @@ def packed_partial(n: int, sort_bits: int) -> bool:
     return 0 < sort_bits < 32 and sort_bits + log_n <= 32
 
 
-def network_streams(n: int, sort_bits: int, kv: bool, stable: bool) -> int:
-    """Streams the network carries for a sort (the capacity check's count)."""
+def network_streams(n: int, sort_bits: int, kv: bool, stable: bool,
+                    value_words: int = 1) -> int:
+    """Streams the network carries for a sort (the capacity check's
+    count); a KV sort's values take ``value_words`` streams."""
     if not kv:
         if sort_bits >= 32:
             return 1
         return 2 if packed_partial(n, sort_bits) else 3
     if sort_bits >= 32:
-        return 3 if stable else 2
-    return 3 if packed_partial(n, sort_bits) else 4
+        keys = 2 if stable else 1
+    else:
+        keys = 2 if packed_partial(n, sort_bits) else 3
+    return keys + value_words
 
 
 def _bitonic(streams, num_keys: int, n_out: int):
@@ -92,25 +100,29 @@ def sort_network(keys: torch.Tensor, sort_bits: int) -> torch.Tensor:
     return _bitonic((masked, _iota(n, keys.device), keys), 2, n)[2]
 
 
-def sort_kv_network(keys: torch.Tensor, values: torch.Tensor,
-                    sort_bits: int, stable: bool = True):
-    """Key-value sort of u32 keys and 32-bit value words (both int32)."""
+def sort_kv_network(keys: torch.Tensor, values, sort_bits: int,
+                    stable: bool = True):
+    """Key-value sort of u32 keys and the value word streams ``values``
+    (a tuple of int32: one word, or the (hi, lo) of 64-bit values).
+    Returns (keys, tuple of value words)."""
     n = keys.shape[0]
+    values = tuple(values)
     masked = keys if sort_bits >= 32 else keys & ((1 << sort_bits) - 1)
     if sort_bits >= 32 and not stable:
         # At n = 2^k >= 1024 there are no pads, so the key alone may be
-        # the comparator; otherwise (key, value) pairs keep a pad from
+        # the comparator; otherwise (key, value words) keep a pad from
         # displacing a real (0xFFFFFFFF, v) pair off the kept prefix.
         pow2 = n >= 1024 and n & (n - 1) == 0
-        return _bitonic((keys, values), 1 if pow2 else 2, n)
+        out = _bitonic((keys,) + values, 1 if pow2 else 1 + len(values), n)
+        return out[0], out[1:]
     if sort_bits >= 32:
-        out = _bitonic((keys, _iota(n, keys.device), values), 2, n)
-        return out[0], out[2]
+        out = _bitonic((keys, _iota(n, keys.device)) + values, 2, n)
+        return out[0], out[2:]
     if packed_partial(n, sort_bits):
-        out = _bitonic((_composite(masked, sort_bits), keys, values), 1, n)
-        return out[1], out[2]
-    out = _bitonic((masked, _iota(n, keys.device), keys, values), 2, n)
-    return out[2], out[3]
+        out = _bitonic((_composite(masked, sort_bits), keys) + values, 1, n)
+        return out[1], out[2:]
+    out = _bitonic((masked, _iota(n, keys.device), keys) + values, 2, n)
+    return out[2], out[3:]
 
 
 def network_rows(rows):

@@ -82,7 +82,7 @@ def test_pass_plan_does_not_change_output(rng, log_block):
 def test_pass_plan_runs_every_layer_once(ns, nk, n, nv):
     """The plan runs layers s-1..0 of every stage s in order, each over
     the prefix of the stage-s groups that hold a real element, and fuses
-    at most F_MAX layers into one global pass."""
+    at most f_max(ns) layers into one global pass."""
     lb = tb.block_log(ns)
     layers = []
     for name, args in tb.pass_plan(ns, n, nk, nv):
@@ -94,7 +94,7 @@ def test_pass_plan_runs_every_layer_once(ns, nk, n, nv):
                    for j in range(s - 1, -1, -1)]
         elif name == "bitonic_global":
             s, j_hi, j_lo = args[2:]
-            assert j_lo >= lb and j_hi - j_lo < tb.F_MAX
+            assert j_lo >= lb and j_hi - j_lo < tb.f_max(ns)
             run = [(s, j) for j in range(j_hi, j_lo - 1, -1)]
         else:
             assert args[2] == lb

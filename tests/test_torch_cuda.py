@@ -23,7 +23,9 @@ from sortx_torch.ops.shuffle import (CHUNK_ELEMS, apply_runs,
 
 pytestmark = pytest.mark.cuda
 
-STREAM_SETS = [(1, 1), (2, 1), (2, 2), (3, 1), (3, 2), (4, 1), (4, 2)]
+STREAM_SETS = sorted(tb.NARROW_SETS)
+# the full-network-only sets of the 64-bit, argsort and lexsort paths
+WIDE_SETS = sorted(tb.STREAM_SETS - tb.NARROW_SETS)
 
 
 @pytest.fixture
@@ -250,3 +252,191 @@ def test_order_statistics_match_cpu(dev):
         want = sortx_torch.top_k(k, kk, return_indices=True)
         assert torch.equal(got[0].cpu(), want[0])
         assert torch.equal(got[1].cpu(), want[1])
+
+
+# --- the wide stream sets and the merge stage (slice 3) --------------------
+
+def _tie_free(x, nk):
+    """Make key stream nk-1 a permutation, as the idx stream is."""
+    n = x.shape[1]
+    x[nk - 1] = torch.randperm(n, generator=torch.Generator().manual_seed(nk))
+    return x
+
+
+@pytest.mark.parametrize("ns, nk", WIDE_SETS)
+@pytest.mark.parametrize("kernel", ["block", "tail", "global_max",
+                                    "global1"])
+def test_wide_kernel_matches_plain(dev, ns, nk, kernel):
+    n = 1 << 15
+    x = _tie_free(_words(ns * 16 + nk, (ns, n)), nk)
+    lb = tb.block_log(ns)
+    fm = tb.f_max(ns)
+    name, fn, plain, args = {
+        "block": ("bitonic_block", tb.bitonic_block, tb.block_plain,
+                  (n, nk, lb)),
+        "tail": ("bitonic_tail", tb.bitonic_tail, tb.tail_plain,
+                 (n, nk, lb, 15)),
+        "global_max": ("bitonic_global", tb.bitonic_global, tb.global_plain,
+                       (n, nk, 15, 14, 15 - fm)),
+        "global1": ("bitonic_global", tb.bitonic_global, tb.global_plain,
+                    (n, nk, 14, 12, 12)),
+    }[kernel]
+    got = x.to(dev)
+    want = x.to(dev)
+    before = launches[name]
+    fn(got, *args)
+    plain(want, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert launches[name] == before + 1
+
+
+@pytest.mark.parametrize("ns, nk", WIDE_SETS)
+def test_wide_network_with_pruned_extent(dev, ns, nk):
+    n, nv = 1 << 16, (1 << 14) + 77
+    x = torch.full((ns, n), -1, dtype=torch.int32)
+    x[:, :nv] = _words(ns + 40, (ns, nv))
+    got = tb.bitonic_sort_streams(x.to(dev), nk, n_valid=nv)
+    want = tb.bitonic_sort_streams(x.clone(), nk, n_valid=nv)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("ns, nk", [(1, 1), (3, 2)])
+@pytest.mark.parametrize("n", [1 << 10, 1 << 12, 1 << 13, 1 << 17])
+def test_merge_stage_matches_plain(dev, ns, nk, n):
+    """At n <= 2^L the stage is one K2 pass with s == L."""
+    rng = np.random.RandomState(n + ns)
+    na = int(rng.randint(1, n))
+    a = np.sort(rng.randint(0, 500, size=na))
+    b = np.sort(rng.randint(0, 500, size=n - na))
+    x = _words(n, (ns, n), dup=False)
+    x[0] = torch.from_numpy(np.concatenate([a, b[::-1]]).astype(np.int32))
+    if nk == 2:
+        x[1] = torch.arange(n)
+    got = tb.bitonic_merge_streams(x.to(dev), nk)
+    want = tb.bitonic_merge_streams(x.clone(), nk)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(want[0], torch.sort(x[0]).values)
+
+
+def _u64_keys(seed, n, dtype):
+    rng = np.random.RandomState(seed)
+    k = (rng.randint(0, 40, size=n).astype(np.uint64) << np.uint64(33)) | \
+        rng.randint(0, 4, size=n).astype(np.uint64)
+    if dtype == torch.float64:
+        return torch.from_numpy(rng.randint(-30, 30, size=n) / 4.0)
+    t = torch.from_numpy(k.view(np.int64))
+    return t.view(torch.uint64) if dtype == torch.uint64 else t - (1 << 40)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint64, torch.int64, torch.float64])
+@pytest.mark.parametrize("n", [5000, 1 << 16])
+def test_64bit_ops_match_cpu(dev, dtype, n):
+    k = _u64_keys(n, n, dtype)
+    v = torch.arange(n, dtype=torch.int32)
+    v64 = torch.arange(n, dtype=torch.int64) * -7
+    for got, want in (
+            (sortx_torch.sort(k.to(dev)), sortx_torch.sort(k)),
+            (sortx_torch.sort(k.to(dev), descending=True),
+             sortx_torch.sort(k, descending=True)),
+            (sortx_torch.argsort(k.to(dev)), sortx_torch.argsort(k)),
+            (sortx_torch.sort_kv(k.to(dev), v.to(dev))[1],
+             sortx_torch.sort_kv(k, v)[1]),
+            (sortx_torch.sort_kv(v.to(dev) % 97, v64.to(dev))[1],
+             sortx_torch.sort_kv(v % 97, v64)[1])):
+        assert torch.equal(got.cpu().view(torch.int64 if got.element_size()
+                                          == 8 else torch.int32),
+                           want.view(torch.int64 if want.element_size() == 8
+                                     else torch.int32))
+
+
+@pytest.mark.parametrize("n", [1000, (1 << 16) + 13])
+def test_unstable_64bit_values_match_cpu(dev, n):
+    """(key, hi, lo) with three keys at ragged n: bit-exact."""
+    k = _words(n, n).view(torch.uint32)
+    v = torch.arange(n, dtype=torch.int64) * 3
+    got = sortx_torch.sort_kv(k.to(dev), v.to(dev), stable=False)
+    want = sortx_torch.sort_kv(k, v, stable=False,
+                               config=sortx_torch.Config(engine="network"))
+    assert torch.equal(got[0].cpu().view(torch.int32),
+                       want[0].view(torch.int32))
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_lexsort_and_merge_match_cpu(dev):
+    n = 20_000
+    rng = np.random.RandomState(11)
+    cols = [torch.from_numpy(rng.randint(0, 3, size=n).astype(np.int32))
+            for _ in range(7)]
+    cols[2] = cols[2].to(torch.float64)           # two words: 8 streams
+    for c in (cols[:1], cols[:3], cols):
+        assert torch.equal(sortx_torch.lexsort([x.to(dev) for x in c]).cpu(),
+                           sortx_torch.lexsort(c))
+    a = torch.sort(_words(1, 7000)).values
+    b = torch.sort(_words(2, 5000)).values
+    assert torch.equal(sortx_torch.merge(a.to(dev), b.to(dev)).cpu(),
+                       sortx_torch.merge(a, b))
+    va, vb = torch.arange(7000, dtype=torch.int32), torch.arange(5000,
+                                                                 dtype=torch.int32)
+    got = sortx_torch.merge_kv(a.to(dev), va.to(dev), b.to(dev), vb.to(dev))
+    want = sortx_torch.merge_kv(a, va, b, vb)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+def test_keyed_and_segmented_ops_match_cpu(dev):
+    n = (1 << 16) + 5
+    k = _words(3, n) % 50
+    v = _words(4, n, dup=False)
+    off = torch.tensor([0, 0, 7, 7, 1000, 30_000, n - 1, n])
+    for name, args in (
+            ("unique", (k, 64)), ("run_length_encode", (k, 64)),
+            ("reduce_by_key", (k, v, 64)), ("sum_by_key", (k, v, 64)),
+            ("partition", (v, k > 20)),
+            ("sort_segments", (v, off)), ("sort_kv_segments", (k, v, off)),
+            ("scan_segments", (v, off)), ("scan_by_key", (k, v))):
+        fn = getattr(sortx_torch, name)
+        got = fn(*(a.to(dev) if torch.is_tensor(a) else a for a in args))
+        want = fn(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), name
+
+
+@pytest.mark.parametrize("dtype", [torch.uint32, torch.float32,
+                                   torch.float16, torch.bfloat16])
+def test_glue_on_unsigned_and_float_keys_matches_cpu(dev, dtype):
+    """uint32 keys (which torch cannot gather or compare on the card) and
+    16-bit floats with NaNs of both signs through the keyed, merge and
+    segmented ops."""
+    n = 40_000
+    w = _words(7, n) % 97
+    if dtype == torch.uint32:
+        k = w.view(torch.uint32)
+    else:
+        k = (w.to(torch.float32) / 4 - 10).to(dtype)
+        k[::31] = float("nan")
+        k[::37] = -float("nan")
+        k[::41] = -0.0
+    v = _words(8, n, dup=False)
+    off = torch.tensor([0, 5, 5, 20_000, 39_999, n])
+    sk = sortx_torch.sort(k)
+    for name, args in (
+            ("sort", (k,)), ("argsort", (k,)), ("unique", (k, 128)),
+            ("run_length_encode", (k, 4096)), ("reduce_by_key", (k, v, 4096)),
+            ("sum_by_key", (k, v, 128)), ("sort_segments", (k, off)),
+            ("sort_kv_segments", (k, v, off)), ("scan_by_key", (k, v)),
+            ("merge", (sk[:n // 2], sk[n // 2:])),
+            ("searchsorted", (sk, k)), ("lexsort", ([v, k],))):
+        fn = getattr(sortx_torch, name)
+        on = [[x.to(dev) for x in a] if isinstance(a, list)
+              else a.to(dev) if torch.is_tensor(a) else a for a in args]
+        got, want = fn(*on), fn(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert all(torch.equal(_bits(g.cpu()), _bits(w))
+                   for g, w in zip(got, want)), name
+
+
+def _bits(t):
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])

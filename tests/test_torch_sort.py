@@ -238,10 +238,46 @@ def test_mismatched_values_raise():
 
 @pytest.mark.parametrize("what", ["keys", "values"])
 def test_64bit_is_not_ported(what):
-    wide = to_torch(np.arange(8, dtype=np.int64))
-    narrow = to_torch(np.arange(8, dtype=np.uint32))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    """64-bit keys and values, refused before the 64-bit words were
+    ported, sort on both engines: here the words on either side of each
+    (hi, lo) split, against numpy (tests/test_torch_extras.py holds the
+    64-bit ops against ``sortx``)."""
+    wide = np.array([2**32, 2**32 - 1, -2**32, -2**32 - 1, 2**31, -2**31,
+                     2**31 - 1, np.iinfo(np.int64).min,
+                     np.iinfo(np.int64).max, 0, -1, 2**32], np.int64)
+    narrow = np.array([3, 1, 3, 0, 2, 1, 0, 3, 2, 2, 1, 0], np.uint32)
+    for engine in ENGINES:
+        cfg = sortx_torch.Config(engine=engine)
         if what == "keys":
-            sortx_torch.sort(wide)
+            _same(sortx_torch.sort(to_torch(wide), config=cfg),
+                  np.sort(wide, kind="stable"))
         else:
-            sortx_torch.sort_kv(narrow, wide)
+            order = np.argsort(narrow, kind="stable")
+            ks, vs = sortx_torch.sort_kv(to_torch(narrow), to_torch(wide),
+                                         config=cfg)
+            _same(ks, narrow[order])
+            _same(vs, wide[order])
+
+
+@pytest.mark.parametrize("dtype", [np.float16, ml_dtypes.bfloat16],
+                         ids=lambda d: np.dtype(d).name)
+def test_16bit_float_nans_match_sortx(rng, dtype):
+    """NaNs of every sign and payload widen and narrow as ``sortx`` (XLA)
+    converts them: f16 quieted with its payload kept, bf16 by its bits
+    (back to the quiet NaN of its sign). torch's own f16 / bf16
+    conversions lose the sign or the payload, which moved NaNs and
+    changed their bits."""
+    bits = rng.randint(0, 1 << 16, size=5000).astype(np.uint16)
+    bits[::3] |= 0x7C00 if dtype == np.float16 else 0x7F80
+    k = bits.view(dtype)
+    v = np.arange(5000, dtype=np.int32)
+    want = sortx.sort_kv(jnp.asarray(k), jnp.asarray(v), descending=True,
+                         config=HOST)
+    for engine in ENGINES:
+        cfg = sortx_torch.Config(engine=engine)
+        _same(sortx_torch.sort(to_torch(k), config=cfg),
+              sortx.sort(jnp.asarray(k), config=HOST))
+        got = sortx_torch.sort_kv(to_torch(k), to_torch(v), descending=True,
+                                  config=cfg)
+        _same(got[0], want[0])
+        _same(got[1], want[1])
