@@ -8,8 +8,10 @@ It builds the kernels from sortx_torch/csrc/ (one nvcc per source, side
 by side) and checks each kernel against its plain PyTorch version bit
 for bit at the shapes its paths give it: every pass of the network's
 pass plan, full and in rows mode, at the wide stream sets (up to 8
-streams) and in the merge stage, the histogram, and both run movers.
-Then it drives each path through the public API at full size (n = 2^27
+streams) and in the merge stage, the histogram, and both run movers;
+K1 and K2 also at the block sizes no plan reaches (the smallest the
+wrappers take, the ends of the register design's range, a buffer off
+the 16-byte grid). Then it drives each path through the public API at full size (n = 2^27
 u32 keys, 512 MB per stream, or 2048 rows of 2^16):
 
   flagship   sort, sort_kv, scan and entry (the network engine)
@@ -28,7 +30,9 @@ torch.bincount, torch.topk, torch.unique) or numpy on the same input. Each path 
 with the kernels' launch counters set to 0 just before it and read just
 after, and fails if one of its kernels never launched. Then it times
 each path beside its torch counterpart, and each kernel beside its
-plain version, with CUDA events. Every check raises on failure: the
+plain version, its bound (the larger of its bytes over the card's memory
+rate and its operations over the card's integer rate) and, where one
+PyTorch call computes the same function, that call, with CUDA events. Every check raises on failure: the
 exit code is 0 only if all passed. The last line is a JSON object
 naming the device. Without a CUDA device it exits non-zero before
 printing any result.
@@ -80,6 +84,13 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                     "sortx/ops/shuffle.py:107"),
 }
 NETWORK = ("bitonic_block", "bitonic_tail", "bitonic_global")
+# The card's peaks the bounds divide by (H100 SXM, NVIDIA's data sheet):
+# device memory 3.35 TB/s; integer compare, min, max, add and select
+# run outside the tensor cores on 64 INT32 lanes per SM, one operation
+# a clock, against the 128 lanes at 2 operations (a fused multiply-add)
+# that the sheet's 67 TFLOP/s of float32 counts: a quarter of it.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
 ROWS = (2048, 1 << 16)      # bench.py's sort_rows shape
 RAGGED_ROWS = (2048, 50_000)
 HYBRID = sortx_torch.Config(engine="hybrid")
@@ -98,6 +109,22 @@ def u64(x: torch.Tensor) -> torch.Tensor:
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((u64(a) - u64(b)).abs().max())
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time (ms) the card could take to move n_bytes through
+    device memory and do n_ops integer operations, and which sets it."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def network_bound(ns: int, n: int, layers: int) -> dict:
+    """A network pass over ns streams of n words: each word read and
+    written once; per layer n / 2 compare-exchanges of at least 2
+    operations (keys-only: a min and a max)."""
+    return bound(2 * 4 * ns * n, layers * (n // 2) * 2)
 
 
 def time_ms(run, setup=None, reps: int = 5) -> list:
@@ -136,7 +163,7 @@ def header() -> str:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     print(card)
-    nvcc = subprocess.run([_build._nvcc(), "--version"], check=True,
+    nvcc = subprocess.run([_build.nvcc_path(), "--version"], check=True,
                           capture_output=True, text=True).stdout
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} nvcc: "
@@ -175,11 +202,12 @@ def walk_plan(x: torch.Tensor, nk: int, nv: int, err: dict,
         plain(want, *args)
         fn(x, *args)
         torch.cuda.synchronize()
-        err[name] = max(err[name], max_abs_err(x, want))
-        if not torch.equal(x, want):
+        if not torch.equal(x, want):    # equal: the error stays 0
+            err[name] = max(err[name], max_abs_err(x, want))
             raise RuntimeError(f"chip_smoke: FAILED {name} ns={x.shape[0]} "
                                f"nk={nk} n={x.shape[1]} n_valid={nv} "
-                               f"row_log={row_log} args={args} == plain")
+                               f"row_log={row_log} args={args} == plain "
+                               f"(max abs err {err[name]})")
         del want
     return len(plan)
 
@@ -665,6 +693,51 @@ def companion_walks(dev, err: dict) -> None:
         del x
 
 
+def design_walks(dev, err: dict) -> None:
+    """K1 and K2, one launch each against the plain version, at the
+    blocks no path's plan reaches: per stream set the smallest block the
+    wrappers take (2^1) and the one below the register design's range
+    (both run the per-layer kernels), the ends of that range (and 2^14
+    at one stream), and a 2^10 block of a buffer off the 16-byte grid;
+    K2 in descending and ascending blocks; the narrow sets also in rows
+    mode and K2 at s == L."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    for ns, nk in sorted(tb.STREAM_SETS):
+        design = [lb for lb in range(1, tb.LOG_BLOCK_MAX + 1)
+                  if tb.elems_log(ns, lb)]
+        sizes = sorted({1, design[0] - 1, design[0], design[-1]}
+                       | ({14} if ns == 1 else set()))
+        count = 0
+        for lb, off in [(lb, 0) for lb in sizes] + [(10, 1)]:
+            n = 8 << lb
+            buf = wide_set(gen, dev, ns, nk, n + 4, n + 4)
+            buf[:nk - 1] &= 1       # many ties on the leading keys
+            if nk == 1:
+                buf[0] &= 0xFF      # and on a lone key: a tie must not move
+            runs = [("bitonic_block", (n, nk, lb)),
+                    ("bitonic_tail", (n, nk, lb, lb + 1))]
+            if (ns, nk) in tb.NARROW_SETS:
+                runs += [("bitonic_block", (n, nk, lb, r))
+                         for r in sorted({lb, max(lb - 2, 1)})]
+                runs += [("bitonic_tail", (n, nk, lb, lb, True))]
+            for name, args in runs:
+                fn, plain = tb.KERNELS[name]
+                x = buf.clone()[:, off:off + n]
+                want = x.clone()
+                fn(x, *args)
+                plain(want, *args)
+                torch.cuda.synchronize()
+                err[name] = max(err[name], max_abs_err(x, want))
+                if not torch.equal(x, want):
+                    raise RuntimeError(
+                        f"chip_smoke: FAILED {name} ns={ns} nk={nk} "
+                        f"args={args} word offset {off} == plain")
+                count += 1
+        check(True, f"K1 / K2 ns={ns} nk={nk} at blocks 2^{sizes} and off "
+              f"the 16-byte grid (design e={tb.elems_log(ns, design[-1])} "
+              f"from 2^{design[0]}): all {count} launches == plain")
+
+
 def segments(gen, dev, n: int, count: int = 10_000) -> torch.Tensor:
     """count + 1 ragged int64 offsets over n, every 97th segment empty."""
     cuts = torch.sort(torch.randint(0, n + 1, (count - 1,), device=dev,
@@ -1086,9 +1159,10 @@ def time_line(card: str, what: str, times, per=None) -> float:
     return ms
 
 
-def timings(dev, card: str, err: dict) -> dict:
+def timings(dev, card: str, err: dict):
     """Phase 8: CUDA-event medians of the flagship path and of K1-K4;
-    each kernel's timed output is held against its plain version's."""
+    each kernel's timed output is held against its plain version's.
+    Returns (kernel -> (ms, plain ms), kernel -> bound and library ms)."""
     torch.cuda.empty_cache()    # drop the earlier phases' cached blocks
     rng = np.random.RandomState(SEED + 2)
     keys = words(rng, N, dev)
@@ -1112,22 +1186,23 @@ def timings(dev, card: str, err: dict) -> dict:
     line(f"torch.cumsum int32->int64 n={N} elements",
          time_ms(lambda: torch.cumsum(keys, 0)), N)
 
-    ms = {}
+    ms, extra = {}, {}
     log_n = N.bit_length() - 1
-    for ns, nk in ((1, 1), (3, 2)):
+    for ns, nk in ((1, 1), (2, 2), (3, 2)):
         x0 = torch.stack([keys] + [values] * (ns - 1))
         x = x0.clone()
         lb = tb.block_log(ns)
         restore = lambda: x.copy_(x0)   # noqa: E731
-        for name, args in (
-                ("bitonic_block", (N, nk, lb)),
-                ("bitonic_tail", (N, nk, lb, log_n)),
+        for name, args, layers in (
+                ("bitonic_block", (N, nk, lb), lb * (lb + 1) // 2),
+                ("bitonic_tail", (N, nk, lb, log_n), lb),
                 ("bitonic_global",
-                 (N, nk, log_n, log_n - 1, log_n - tb.f_max(ns)))):
+                 (N, nk, log_n, log_n - 1, log_n - tb.f_max(ns)),
+                 tb.f_max(ns))):
             fn, plain = tb.KERNELS[name]
             k_ms = time_ms(lambda: fn(x, *args), restore)
             got = x.clone()       # the kernel's output of the last run
-            p_ms = time_ms(lambda: plain(x, *args), restore, reps=3)
+            p_ms = time_ms(lambda: plain(x, *args), restore, reps=1)
             torch.cuda.synchronize()
             err[name] = max(err[name], max_abs_err(got, x))
             check(torch.equal(got, x), f"{name} ns={ns} nk={nk} n={N} "
@@ -1136,14 +1211,58 @@ def timings(dev, card: str, err: dict) -> dict:
             what = f"{name} ns={ns} nk={nk} n={N} args={args[2:]}"
             k_ms = line(f"{what} kernel", k_ms)
             p_ms = line(f"{what} plain", p_ms)
+            b = network_bound(ns, N, layers)
+            print(f"bound {what}: {b['bound_ms']!r} ms by {b['bound_by']}")
             if ns == 1:       # the keys-only sort's shapes
                 ms[name] = (k_ms, p_ms)
+                extra[name] = dict(b, library_ms=None)
         del x, x0
+    block_size_ab(card, keys, values)
+    # one PyTorch call for K1's function: the same 2^L blocks, each
+    # sorted ascending (K1 sorts every other block descending)
+    lb = tb.block_log(1)
+    extra["bitonic_block"]["library_ms"] = line(
+        f"torch.sort(dim=1) int32 {N >> lb} x 2^{lb} (K1's blocks)",
+        time_ms(lambda: torch.sort(keys.view(-1, 1 << lb), dim=1)), N)
     k_ms = time_ms(lambda: tile_scan(keys))
     p_ms = time_ms(lambda: scan_plain(keys))
     ms["scan"] = (line(f"scan kernel n={N}", k_ms, N),
                   line(f"scan plain n={N}", p_ms, N))
-    return ms
+    # K4 reads n words and writes n words (and one total); one add each
+    extra["scan"] = dict(bound(2 * 4 * N, N), library_ms=line(
+        f"torch.cumsum int32->int32 n={N} elements",
+        time_ms(lambda: torch.cumsum(keys, 0, dtype=torch.int32)), N))
+    return ms, extra
+
+
+# The blocks (log2) K1 and K2 had at 1 and 4 streams before they kept
+# their elements in registers; ops/bitonic.py BLOCK_LOG has today's.
+OLD_BLOCK_LOG = {1: 13, 4: 12}
+
+
+def block_size_ab(card: str, keys, values) -> None:
+    """K1, K2 and the whole network at 2^27 at the old and the new block
+    size of the stream counts whose block changed, in turns (old, new,
+    new, old)."""
+    for ns, old in OLD_BLOCK_LOG.items():
+        nk = min(ns, 2)
+        x0 = torch.stack(([keys, values] * 2)[:ns])
+        x = x0.clone()
+        restore = lambda: x.copy_(x0)   # noqa: E731
+        log_n = N.bit_length() - 1
+        for lb in (old, tb.block_log(ns), tb.block_log(ns), old):
+            what = f"ns={ns} nk={nk} n={N} block 2^{lb}"
+            time_line(card, f"bitonic_block {what}", time_ms(
+                lambda: tb.bitonic_block(x, N, nk, lb), restore, reps=3))
+            time_line(card, f"bitonic_tail {what}", time_ms(
+                lambda: tb.bitonic_tail(x, N, nk, lb, log_n), restore,
+                reps=3))
+            plan = [name for name, _ in tb.pass_plan(ns, N, nk, log_block=lb)]
+            time_line(card, f"network {what} ({plan.count('bitonic_tail')} "
+                      f"K2 + {plan.count('bitonic_global')} K3 passes)",
+                      time_ms(lambda: tb.bitonic_sort_streams(
+                          x, nk, log_block=lb), restore, reps=3))
+        del x, x0
 
 
 def timed_kernel(card: str, what: str, run, plain, err: dict, name: str,
@@ -1153,7 +1272,7 @@ def timed_kernel(card: str, what: str, run, plain, err: dict, name: str,
     timed outputs equal. Returns (kernel ms, plain ms)."""
     k_ms = time_ms(run, setup)
     got = [g.clone() for g in _outputs(setup, run)]
-    p_ms = time_ms(plain, setup, reps=3)
+    p_ms = time_ms(plain, setup, reps=1)
     want = _outputs(setup, plain)
     torch.cuda.synchronize()
     err[name] = max(err[name], max(max_abs_err(g, w)
@@ -1172,7 +1291,7 @@ def _outputs(setup, run) -> tuple:
     return tuple(out) if isinstance(out, (tuple, list)) else (out,)
 
 
-def slice2_timings(dev, card: str, err: dict) -> dict:
+def slice2_timings(dev, card: str, err: dict):
     """Phase 9: CUDA-event medians of the hybrid, rows, select and mover
     paths beside their torch counterparts; the new kernels and the rows
     mode of K1-K3 beside their plain versions; and where the hybrid's
@@ -1182,7 +1301,7 @@ def slice2_timings(dev, card: str, err: dict) -> dict:
     keys = words(rng, N, dev)
     u = keys.view(torch.uint32)
     values = torch.arange(N, dtype=torch.int32, device=dev)
-    ms = {}
+    ms, extra = {}, {}
 
     def line(what, times, per=None):
         return time_line(card, what, times, per)
@@ -1210,14 +1329,14 @@ def slice2_timings(dev, card: str, err: dict) -> dict:
 
     line(f"sortx_torch.histogram 8 bits n={N}",
          time_ms(lambda: sortx_torch.histogram(u, 8, 24)), N)
-    line(f"torch.bincount of the 8-bit digit n={N}",
-         time_ms(lambda: torch.bincount((keys >> 24) & 0xFF,
-                                        minlength=256)), N)
+    bincount_ms = line(f"torch.bincount of the 8-bit digit n={N}",
+                       time_ms(lambda: torch.bincount((keys >> 24) & 0xFF,
+                                                      minlength=256)), N)
     k64 = u64(keys)
     line(f"sortx_torch.kth_value n={N}",
          time_ms(lambda: sortx_torch.kth_value(u, N // 3)), N)
-    line(f"torch.kthvalue int64 n={N}",
-         time_ms(lambda: torch.kthvalue(k64, N // 3 + 1)), N)
+    line(f"torch.kthvalue int64 n={N}",       # 1.9 s a call: one rep
+         time_ms(lambda: torch.kthvalue(k64, N // 3 + 1), reps=1), N)
     del k64
     for k in (64, 1024):
         line(f"sortx_torch.top_k k={k} i32 n={N}",
@@ -1232,6 +1351,10 @@ def slice2_timings(dev, card: str, err: dict) -> dict:
         card, f"histogram n={N} bits=8 shift=24",
         lambda: tile_histogram(keys, 24, radix=256, tile_elems=16384),
         lambda: histogram_plain(keys, 24, 256, 16384), err, "histogram")
+    # K5 reads n words and writes 256 counts per 16384-word tile; a
+    # shift, a mask and an add per word
+    extra["histogram"] = dict(bound(4 * N + 4 * 256 * (N // 16384), 3 * N),
+                              library_ms=bincount_ms)
     tiles, (rs, rd, rl, _), (B, cap, chunk) = hybrid_tables(rng, dev, 1)
     flat = (tiles[0].reshape(-1),)
     ms["run_mover"] = timed_kernel(
@@ -1241,6 +1364,11 @@ def slice2_timings(dev, card: str, err: dict) -> dict:
                           chunk=chunk),
         lambda: move_runs_plain(flat, rs, rd, rl, B * cap, (-1,)), err,
         "run_mover")
+    # K6 reads the words its runs hold and its three run tables, and
+    # writes the whole B x cap destination, fills included
+    extra["run_mover"] = dict(
+        bound(4 * (int(rl.sum()) + B * cap) + 3 * 4 * rs.shape[0], 0),
+        library_ms=None)
     del tiles, flat
     src, plan, _ = radix_plan(rng, dev)
     ms["piece_mover"] = timed_kernel(
@@ -1249,6 +1377,8 @@ def slice2_timings(dev, card: str, err: dict) -> dict:
         lambda: apply_runs(src, plan, N), lambda: apply_runs_plain(src, plan,
                                                                    N),
         err, "piece_mover")
+    extra["piece_mover"] = dict(
+        bound(2 * 4 * N + 3 * 4 * len(plan["piece_src"]), 0), library_ms=None)
     del src
 
     # rows mode of K1-K3 at the sort_rows and top_k shapes, 1 stream
@@ -1263,7 +1393,7 @@ def slice2_timings(dev, card: str, err: dict) -> dict:
         timed_kernel(card, f"{name} rows mode n={N} args={args[2:]}",
                      lambda: fn(x, *args), lambda: plain(x, *args) or x,
                      err, name, setup=restore)
-    return ms
+    return ms, extra
 
 
 def hybrid_breakdown(card: str, what: str, run, reps: int = 3) -> None:
@@ -1301,27 +1431,48 @@ def hybrid_breakdown(card: str, what: str, run, reps: int = 3) -> None:
 
 
 def main() -> None:
-    t0 = time.perf_counter()
+    t0 = lap = time.perf_counter()
+
+    def took(phase: str) -> None:
+        nonlocal lap
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - lap:.1f} s", flush=True)
+        lap = now
+
     card = header()
     dev = torch.device("cuda", 0)
+    took("build")
     err = kernel_checks(dev)
+    took("kernel checks")
     companion_walks(dev, err)
+    took("companion walks")
+    design_walks(dev, err)
+    took("design walks")
     # each kernel's launches are read from the path it belongs to
     counts = main_path(dev)
-    ms = timings(dev, card, err)    # before the other paths' allocations
+    took("flagship path")
+    ms, extra = timings(dev, card, err)   # before the other paths allocate
+    took("flagship timings")
     counts["run_mover"] = hybrid_path(dev)["run_mover"]
     rows_path(dev)
     counts["histogram"] = select_path(dev)["histogram"]
     counts["piece_mover"] = movers_path(dev)["piece_mover"]
-    ms.update(slice2_timings(dev, card, err))
+    took("hybrid, rows, select and movers paths")
+    ms2, extra2 = slice2_timings(dev, card, err)
+    ms.update(ms2)
+    extra.update(extra2)
+    took("their timings")
     companions = companion_inputs(dev)
     companions_path(dev, companions)
+    took("companions path")
     companion_timings(dev, card, err, companions)
+    took("companion timings")
     del companions
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": counts[name],
                 "max_abs_err": err[name], "ms": ms[name][0],
-                "plain_ms": ms[name][1]}
+                "plain_ms": ms[name][1], **extra[name]}
                for name, (src, replaces) in KERNELS.items()]
     print(f"chip_smoke took {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

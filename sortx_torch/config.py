@@ -12,10 +12,10 @@ import dataclasses
 
 __all__ = ["Config", "LOG_BLOCK_MAX", "resolve_engine"]
 
-# Largest shared-memory block (log2 elements) of the bitonic block
-# kernels: 2^13 u32 per stream keeps two streams within 64 KB of the
-# 227 KB a CTA may hold, so three CTAs fit on one SM.
-LOG_BLOCK_MAX = 13
+# Largest shared-memory block (log2 elements) the bitonic block kernels
+# take: one stream of 2^15 u32 is 128 KB of the 227 KB a CTA may hold.
+# ops/bitonic.py BLOCK_LOG picks the block for each stream count.
+LOG_BLOCK_MAX = 15
 
 
 @dataclasses.dataclass(frozen=True)

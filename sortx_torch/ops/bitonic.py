@@ -20,6 +20,12 @@ Each wrapper runs its CUDA kernel on a CUDA tensor and its plain PyTorch
 version (the same layers as pair reshapes and ``torch.where``) on a CPU
 tensor. All of them work in place on the prefix ``x[:, :ext]``.
 
+K1 and K2 keep 2^e elements per thread in registers and run a layer in
+registers, by warp shuffles, or after a change of layout through shared
+memory; :func:`block_schedule` and :func:`tail_schedule` state which,
+and the tests hold them to the network (csrc/bitonic.cu runs the same
+phases).
+
 ``n_valid`` prunes pad-only work as the reference does: every index
 >= n_valid holds 0xFFFFFFFF in every stream, a stage-s group without a
 real element sorts to itself, so stage s only runs over the prefix
@@ -46,6 +52,8 @@ fuses at most 3 layers (:func:`f_max`), so that its registers hold.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from ..config import LOG_BLOCK_MAX
@@ -56,7 +64,7 @@ from ._build import launch, on_card
 __all__ = ["bitonic_sort_streams", "bitonic_merge_streams", "pass_plan",
            "merge_plan", "bitonic_block", "bitonic_tail", "bitonic_global",
            "block_plain", "tail_plain", "global_plain", "block_log", "f_max",
-           "KERNELS", "STREAM_SETS", "NARROW_SETS"]
+           "KERNELS", "STREAM_SETS", "NARROW_SETS", "BLOCK_LOG"]
 
 # (streams, keys) pairs the kernels take. The narrow sets serve every
 # mode; the wide ones the full network (64-bit keys and values, argsort,
@@ -76,10 +84,108 @@ def f_max(ns: int) -> int:
     return 4 if ns <= 4 else 3
 
 
+# Block (log2 elements) of K1 and K2 by stream count, 11 above 4 streams:
+# chosen by timing the network at 2^27 at each size the kernels take. The
+# largest block also wins from 2^16 to 2^24 keys, where its grid no longer
+# fills the card: fewer launches count for more there (PERF.md), so the
+# choice does not depend on n. At 3 streams 2^13 is ahead up to 2^20 keys
+# and behind from 2^22.
+BLOCK_LOG = {1: 15, 2: 13, 3: 12, 4: 13}
+
+
 def block_log(ns: int, log_block: int = LOG_BLOCK_MAX) -> int:
-    """Shared-memory block (log2) for ns streams: the largest L with
-    ns * 4 B * 2^L <= 64 KB, capped at ``log_block``."""
-    return min(log_block, 14 - (ns - 1).bit_length())
+    """Shared-memory block (log2) for ns streams, capped at ``log_block``."""
+    return min(log_block, BLOCK_LOG.get(ns, 11))
+
+
+# --- the register design of K1 and K2 --------------------------------------
+# Everything from here to the plain versions restates csrc/bitonic.cu
+# (elems_log, the low and high layouts, the phases of both kernels) and
+# must match it; tests/test_torch_bitonic.py holds it to the network, and
+# tools/ab_bitonic.py holds the kernels' barriers to it. Not public API.
+
+E_BIG = 5           # log2 elements a thread owns of one stream above 2^13
+SMEM_MAX = 232448   # bytes of shared memory one block may ask for
+
+
+def design_top(ns: int, e: int) -> int:
+    """The largest block (log2) K1 / K2 take with 2^e elements a thread:
+    2e + 5, as far as ns streams of it fit in shared memory."""
+    top = 2 * e + 5
+    while (4 * ns) << top > SMEM_MAX:
+        top -= 1
+    return top
+
+
+def elems_log(ns: int, log_block: int) -> int:
+    """log2 of the elements a thread of K1 / K2 owns for ns streams in a
+    block 2^log_block: 3 above 4 streams, E_BIG for 1 stream in a block
+    above 2^13, else 4. 0 where the block is outside e + 5..design_top
+    and the per-layer kernels run (one barrier per layer)."""
+    e = 3 if ns > 4 else E_BIG if ns == 1 and log_block > 13 else 4
+    if not e + 5 <= log_block <= design_top(ns, e):
+        return 0
+    return e
+
+
+class Layout(collections.namedtuple("Layout", "slots lanes warps vector")):
+    """Which index bit of a block each slot, lane and warp bit of a
+    thread's element holds (least significant first), and the words a
+    thread moves in one access (``vector``: 4 = 16 bytes)."""
+
+    def word(self, warp: int, lane: int, slot: int) -> int:
+        """Block-local index of a thread's slot: its word in shared
+        memory, and its offset in the block in device memory."""
+        return sum(((v >> k) & 1) << bit
+                   for v, bits in ((slot, self.slots), (lane, self.lanes),
+                                   (warp, self.warps))
+                   for k, bit in enumerate(bits))
+
+
+def low_layout(e: int, log_block: int) -> Layout:
+    """Slot 4q + k holds index warp << (e+5) | q << 7 | lane << 2 | k: the
+    layers 0..e+4, and 16-byte accesses a warp makes to 512 contiguous
+    bytes."""
+    return Layout((0, 1) + tuple(range(7, e + 5)), tuple(range(2, 7)),
+                  tuple(range(e + 5, log_block)), 4)
+
+
+def high_layout(e: int, log_block: int) -> Layout:
+    """Slot r holds index r << (L-e) | thread: the layers L-e..L-1, and
+    one-word accesses a warp makes to 32 consecutive words."""
+    return Layout(tuple(range(log_block - e, log_block)), tuple(range(5)),
+                  tuple(range(5, log_block - e)), 1)
+
+
+# One run of layers of stage ``stage`` under one layout ("low" / "high");
+# ``relayout``: the block changes layout through shared memory (write,
+# one barrier, read) to get there.
+Phase = collections.namedtuple("Phase", "stage layout layers relayout")
+
+
+def tail_schedule(log_block: int, e: int):
+    """K2's phases for a block 2^L (of whatever stage: ``stage`` is None):
+    device memory is read straight into the high layout for layers
+    L-1..e+5, one change of layout, then layers e+4..0 and the store
+    from the low layout."""
+    if log_block <= e + 5:
+        return [Phase(None, "low", list(range(log_block - 1, -1, -1)), False)]
+    return [Phase(None, "high", list(range(log_block - 1, e + 4, -1)), False),
+            Phase(None, "low", list(range(e + 4, -1, -1)), True)]
+
+
+def block_schedule(log_block: int, e: int, row_log: int = 0):
+    """K1's phases: stages 1..e+5 in the low layout, in which the block
+    is loaded and stored, with no barrier; each later stage goes to the
+    high layout for its layers s-1..e+5 and back for e+4..0."""
+    phases = []
+    for s in range(1, (row_log or log_block) + 1):
+        if s <= e + 5:
+            phases.append(Phase(s, "low", list(range(s - 1, -1, -1)), False))
+        else:
+            phases += [Phase(s, "high", list(range(s - 1, e + 4, -1)), True),
+                       Phase(s, "low", list(range(e + 4, -1, -1)), True)]
+    return phases
 
 
 # --- plain versions ------------------------------------------------------

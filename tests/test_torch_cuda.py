@@ -47,7 +47,7 @@ def _words(seed, shape, dup=True):
 @pytest.mark.parametrize("ns, nk", STREAM_SETS)
 @pytest.mark.parametrize("kernel", ["block", "tail", "global4", "global2"])
 def test_kernel_matches_plain(dev, ns, nk, kernel):
-    n = 1 << 15
+    n = 1 << 17
     x = _words(ns * 10 + nk, (ns, n))
     if nk == 2:                      # tie-free second key, as idx is
         x[1] = torch.randperm(n, generator=torch.Generator().manual_seed(0))
@@ -56,9 +56,9 @@ def test_kernel_matches_plain(dev, ns, nk, kernel):
         "block": ("bitonic_block", tb.bitonic_block, tb.block_plain,
                   (n, nk, lb)),
         "tail": ("bitonic_tail", tb.bitonic_tail, tb.tail_plain,
-                 (n, nk, lb, 15)),
+                 (n, nk, lb, 17)),
         "global4": ("bitonic_global", tb.bitonic_global, tb.global_plain,
-                    (n, nk, 15, 14, 11)),
+                    (n, nk, 17, 16, 13)),
         "global2": ("bitonic_global", tb.bitonic_global, tb.global_plain,
                     (n, nk, 14, 13, 12)),
     }[kernel]
@@ -440,3 +440,65 @@ def test_glue_on_unsigned_and_float_keys_matches_cpu(dev, dtype):
 def _bits(t):
     return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
                    8: torch.int64}[t.element_size()])
+
+
+# --- K1 and K2 at every block size (the register design, slice 4) ----------
+
+# every block from 2^10 to the one the library picks, for the narrow sets
+BLOCKS = [(ns, nk, lb) for ns, nk in STREAM_SETS
+          for lb in range(10, tb.block_log(ns) + 1)]
+# the ends of the design's range and the per-layer kernels below it, for
+# a narrow and the widest set; 14: one stream between its two designs
+EDGE_BLOCKS = [(ns, nk, lb) for ns, nk in ((1, 1), (3, 2), (8, 8))
+               for lb in (1, 2, 7, 8, 9, 14) if 4 * ns << lb <= 64 << 10]
+
+
+def _run_block_mode(dev, x, nk, lb, mode):
+    n = x.shape[1]
+    name, args = {
+        "block": ("bitonic_block", (n, nk, lb)),
+        "block_rows": ("bitonic_block", (n, nk, lb, max(lb - 2, 1))),
+        "block_row_is_block": ("bitonic_block", (n, nk, lb, lb)),
+        "tail": ("bitonic_tail", (n, nk, lb, lb + 1)),
+        "tail_asc": ("bitonic_tail", (n, nk, lb, lb + 2, True)),
+        "tail_merge": ("bitonic_tail", (n, nk, lb, lb, True)),
+    }[mode]
+    fn, plain = tb.KERNELS[name]
+    got, want = x.to(dev), x.to(dev)
+    before = launches[name]
+    fn(got, *args)
+    plain(want, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert launches[name] == before + 1
+
+
+@pytest.mark.parametrize("ns, nk, lb", BLOCKS)
+@pytest.mark.parametrize("mode", ["block", "block_rows", "block_row_is_block",
+                                  "tail", "tail_asc", "tail_merge"])
+def test_block_kernels_match_plain_at_every_block(dev, ns, nk, lb, mode):
+    """Duplicate-heavy words in every stream: pairs tie on all keys, and
+    a tied pair must stay put in registers, shuffles and shared memory."""
+    _run_block_mode(dev, _words(lb * 64 + ns * 8 + nk, (ns, 8 << lb)), nk,
+                    lb, mode)
+
+
+@pytest.mark.parametrize("ns, nk, lb", EDGE_BLOCKS)
+@pytest.mark.parametrize("mode", ["block", "tail"])
+def test_block_kernels_match_plain_at_the_edges(dev, ns, nk, lb, mode):
+    _run_block_mode(dev, _words(lb + ns, (ns, 8 << lb)), nk, lb, mode)
+
+
+@pytest.mark.parametrize("ns, nk", [(1, 1), (3, 2), (5, 5)])
+@pytest.mark.parametrize("mode", ["block", "tail"])
+def test_block_kernels_take_streams_off_the_16_byte_grid(dev, ns, nk, mode):
+    lb = 10
+    n = 4 << lb
+    x = _words(ns, (ns, n + 4)).to(dev)[:, 1:n + 1]
+    want = x.clone()
+    name = "bitonic_" + mode
+    args = (n, nk, lb) if mode == "block" else (n, nk, lb, lb + 1)
+    tb.KERNELS[name][0](x, *args)
+    tb.KERNELS[name][1](want, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(x, want)
