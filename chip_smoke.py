@@ -8,7 +8,12 @@ It builds the kernels from sortx_torch/csrc/ (one nvcc per source, side
 by side) and checks each kernel against its plain PyTorch version bit
 for bit at the shapes its paths give it: every pass of the network's
 pass plan, full and in rows mode, at the wide stream sets (up to 8
-streams) and in the merge stage, the histogram, and both run movers;
+streams) and in the merge stage, the scan (sizes around a tile's edges,
+wrapping and all-ones words, a shifted view, 20 repeats, under two
+configs' tiles), the
+histogram (uniform, all-equal and two-valued words, every digit width,
+per tile and whole, with and without the prefix filter), and both run
+movers;
 K1 and K2 also at the block sizes no plan reaches (the smallest the
 wrappers take, the ends of the register design's range, a buffer off
 the 16-byte grid). Then it drives each path through the public API at full size (n = 2^27
@@ -32,7 +37,9 @@ after, and fails if one of its kernels never launched. Then it times
 each path beside its torch counterpart, and each kernel beside its
 plain version, its bound (the larger of its bytes over the card's memory
 rate and its operations over the card's integer rate) and, where one
-PyTorch call computes the same function, that call, with CUDA events. Every check raises on failure: the
+PyTorch call computes the same function, that call, with CUDA events
+(the scan, the histogram and their library calls over 10 calls in a
+row). Every check raises on failure: the
 exit code is 0 only if all passed. The last line is a JSON object
 naming the device. Without a CUDA device it exits non-zero before
 printing any result.
@@ -127,10 +134,13 @@ def network_bound(ns: int, n: int, layers: int) -> dict:
     return bound(2 * 4 * ns * n, layers * (n // 2) * 2)
 
 
-def time_ms(run, setup=None, reps: int = 5) -> list:
+def time_ms(run, setup=None, reps: int = 5, calls: int = 1) -> list:
     """CUDA-event times (ms) of reps calls of run() after one warm-up;
     setup() (not timed) restores the inputs of an in-place run before
-    each call."""
+    each call. With calls > 1 each time is that of `calls` calls in a
+    row, divided by them: the host's work before a launch (during which
+    the card idles when a call is timed alone) then hides behind the
+    card's, which matters for a kernel of a few tenths of a ms."""
     if setup:
         setup()
     run()
@@ -141,11 +151,15 @@ def time_ms(run, setup=None, reps: int = 5) -> list:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        run()
+        for _ in range(calls):
+            run()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return times
+
+
+ROW = 10    # calls in a row per timing of K4, K5 and their library calls
 
 
 def words(rng, n: int, dev) -> torch.Tensor:
@@ -235,23 +249,54 @@ def kernel_checks(dev) -> dict:
               f"{what}: ns={ns} nk={nk} n={n} n_valid={nv}, all {passes} "
               "passes == plain, and the keys sorted")
         del x, keys
-    for size in (N, 1 << 20, (1 << 20) + 13):
-        # magnitudes near 2^31, so the running sum wraps
-        x = torch.from_numpy(rng.randint(2**30, 2**31, size=size).astype(
-            np.int32)).to(dev)
-        x[::3] = -x[::3]
-        for inclusive in (False, True):
-            out, total = tile_scan(x, inclusive=inclusive)
-            pout, ptotal = scan_plain(x, inclusive)
-            torch.cuda.synchronize()
-            err["scan"] = max(err["scan"], max_abs_err(out, pout),
-                              max_abs_err(total.view(1), ptotal.view(1)))
-            check(torch.equal(out, pout) and torch.equal(total, ptotal),
-                  f"scan n={size} inclusive={inclusive} == plain")
+    scan_checks(rng, dev, err)
     rows_walks(rng, dev, err)
     histogram_checks(rng, dev, err)
     mover_checks(dev, err)
     return err
+
+
+def scan_checks(rng, dev, err: dict) -> None:
+    """K4 against its plain version: n from 1 to 2^27 around the tile's
+    edges, exclusive and inclusive, under the tile of the port's default
+    config and of the reference's (2^18: the kernel keeps its own tile,
+    and every tile a config accepts must run); words near 2^31
+    in magnitude (the running sum wraps), all-ones words (it wraps every
+    step) and a view shifted by one word; and 20 scans of one input,
+    which must give the same bits each time (a race in the look-back
+    would show here)."""
+    # magnitudes near 2^31, so the running sum wraps
+    big = torch.from_numpy(rng.randint(2**30, 2**31, size=N + 1).astype(
+        np.int32)).to(dev)
+    big[::3] = -big[::3]
+    ones = torch.full((N,), -1, dtype=torch.int32, device=dev)
+
+    def same(x, inclusive, tile):
+        out, total = tile_scan(x, inclusive=inclusive, tile_elems=tile)
+        pout, ptotal = scan_plain(x, inclusive)
+        torch.cuda.synchronize()
+        err["scan"] = max(err["scan"], max_abs_err(out, pout),
+                          max_abs_err(total.view(1), ptotal.view(1)))
+        return torch.equal(out, pout) and torch.equal(total, ptotal)
+
+    for tile in (sortx_torch.Config.scan_tile_elems, 1 << 18):
+        for n in (1, 31, 1023, 8191, 8192, 8193, (1 << 20) + 7,
+                  (1 << 20) + 13, N):
+            for what, x in (("words near 2^31", big[:n]),
+                            ("a view shifted by one word", big[1:n + 1]),
+                            ("all-ones words", ones[:n])):
+                check(same(x, False, tile) and same(x, True, tile),
+                      f"scan n={n} scan_tile_elems={tile} {what}, "
+                      "exclusive and inclusive == plain")
+        first = tile_scan(big[:N], tile_elems=tile)
+        repeats = True
+        for _ in range(20):
+            out, total = tile_scan(big[:N], tile_elems=tile)
+            repeats &= (torch.equal(first[0], out)
+                        and torch.equal(first[1], total))
+        check(repeats, f"scan n={N} scan_tile_elems={tile}: 20 more scans of "
+              "one input give the same bits and total")
+        del first, out
 
 
 def rows_walks(rng, dev, err: dict) -> None:
@@ -283,25 +328,77 @@ def rows_walks(rng, dev, err: dict) -> None:
         del x, rows
 
 
+def skewed_words(rng, n: int, dev, kind: str) -> torch.Tensor:
+    """n u32 words (as int32): uniform, all equal, or drawn from 2 or 16
+    values that differ in every byte."""
+    if kind == "uniform":
+        return words(rng, n, dev)
+    if kind == "all-equal":
+        return torch.full((n,), 0x5A5A5A5A, dtype=torch.int32, device=dev)
+    values = {"two-valued": 2, "16-valued": 16}[kind]
+    pick = torch.randint(0, values, (n,), device=dev, dtype=torch.int32)
+    return pick * 0x11111111 + 0x01020304
+
+
 def histogram_checks(rng, dev, err: dict) -> None:
-    """K5 against its plain version at 2^27 and at a ragged n, for the
-    digits 8 bits at 24 and 4 bits at 30, on uniform and skewed words."""
-    for n in (N, N - 12345):
-        x = words(rng, n, dev)
-        for skew in (False, True):
-            if skew:    # kth_value's later rounds: most words in bucket 0
-                x[: n - 1000] = 0
-            for bits, shift in ((8, 24), (4, 30)):
-                got = tile_histogram(x, shift, radix=1 << bits,
-                                     tile_elems=16384)
-                want = histogram_plain(x, shift, 1 << bits, 16384)
-                torch.cuda.synchronize()
-                err["histogram"] = max(err["histogram"],
-                                       max_abs_err(got, want))
-                check(torch.equal(got, want),
-                      f"histogram n={n} bits={bits} shift={shift} "
-                      f"skewed={skew} == plain")
-        del x
+    """K5 against its plain version on uniform, all-equal and two-valued
+    words. At 2^27: 8 bits at 24 and 4 bits at 30, per tile and whole,
+    and each of kth_value's four rounds with the prefix of the middle
+    word; and at a ragged 2^27 - 12345, without and with a prefix. At a
+    ragged 2^22 - 12345, on the tensor and on a view shifted
+    by one word: every digit width 1..8 at shifts 0, 7, 24 and 32 - bits,
+    with and without a prefix."""
+    def same(x, shift, bits, tile=16384, **kw):
+        got = tile_histogram(x, shift, radix=1 << bits, tile_elems=tile, **kw)
+        want = histogram_plain(x, shift, 1 << bits, tile, kw.get("prefix"))
+        if not kw.get("per_tile", True):
+            want = want.sum(0, dtype=torch.int32)
+        torch.cuda.synchronize()
+        err["histogram"] = max(err["histogram"], max_abs_err(got, want))
+        return torch.equal(got, want)
+
+    def above(x, hi_shift):     # the bits of x's middle word above a digit
+        mid = u64(x[x.shape[0] // 2].view(1))
+        return (mid >> min(hi_shift, 31)).to(torch.int32)
+
+    for kind in ("uniform", "all-equal", "two-valued"):
+        x = skewed_words(rng, N, dev, kind)
+        check(all(same(x, shift, bits, per_tile=per_tile)
+                  for bits, shift in ((8, 24), (4, 30))
+                  for per_tile in (True, False)),
+              f"histogram n={N} {kind} words, 8 bits at 24 and 4 bits at 30, "
+              "per tile and whole == plain")
+        check(all(same(x, shift, 8, per_tile=per_tile,
+                       prefix=above(x, shift + 8))
+                  for shift in (24, 16, 8, 0) for per_tile in (True, False)),
+              f"histogram n={N} {kind} words, kth_value's four rounds with "
+              "the prefix of the middle word, per tile and whole == plain")
+        y = x[:N - 12345]
+        check(same(y, 24, 8) and same(y, 16, 8, per_tile=False,
+                                      prefix=above(y, 24)),
+              f"histogram ragged n={N - 12345} {kind} words, 8 bits at 24 per "
+              "tile, and at 16 whole with the prefix of the middle word == "
+              "plain")
+        n = (1 << 22) - 12345
+        for view, y in (("", x[:n]), (" shifted by one word", x[1:n + 1])):
+            count = 0
+            for bits in range(1, 9):
+                for shift in sorted({0, 7, 24, 32 - bits}):
+                    ok = (same(y, shift, bits)
+                          and same(y, shift, bits, per_tile=False)
+                          and same(y, shift, bits,
+                                   prefix=above(y, shift + bits))
+                          and same(y, shift, bits, tile=1000, per_tile=False,
+                                   prefix=above(y, shift + bits)))
+                    if not ok:
+                        raise RuntimeError(
+                            f"chip_smoke: FAILED histogram {kind} n={n}"
+                            f"{view} bits={bits} shift={shift} == plain")
+                    count += 4
+            check(True, f"histogram n={n}{view} {kind} words, bits 1..8 at "
+                  f"shifts 0, 7, 24 and 32 - bits, with and without a "
+                  f"prefix: all {count} launches == plain")
+        del x, y
 
 
 def hybrid_tables(rng, dev, ns: int):
@@ -1224,14 +1321,23 @@ def timings(dev, card: str, err: dict):
     extra["bitonic_block"]["library_ms"] = line(
         f"torch.sort(dim=1) int32 {N >> lb} x 2^{lb} (K1's blocks)",
         time_ms(lambda: torch.sort(keys.view(-1, 1 << lb), dim=1)), N)
-    k_ms = time_ms(lambda: tile_scan(keys))
+    # K4 and the library call beside it, each ROW calls in a row
+    k_ms = time_ms(lambda: tile_scan(keys), calls=ROW)
     p_ms = time_ms(lambda: scan_plain(keys))
-    ms["scan"] = (line(f"scan kernel n={N}", k_ms, N),
+    ms["scan"] = (line(f"scan kernel n={N}, {ROW} calls in a row", k_ms, N),
                   line(f"scan plain n={N}", p_ms, N))
     # K4 reads n words and writes n words (and one total); one add each
     extra["scan"] = dict(bound(2 * 4 * N, N), library_ms=line(
-        f"torch.cumsum int32->int32 n={N} elements",
-        time_ms(lambda: torch.cumsum(keys, 0, dtype=torch.int32)), N))
+        f"torch.cumsum int32->int32 n={N} elements, {ROW} calls in a row",
+        time_ms(lambda: torch.cumsum(keys, 0, dtype=torch.int32),
+                calls=ROW), N))
+    print(f"bound scan n={N}: {extra['scan']['bound_ms']!r} ms by "
+          f"{extra['scan']['bound_by']}")
+    print(f"scan kernel / torch.cumsum(dtype=int32) of the same tensor: "
+          f"{ms['scan'][0] / extra['scan']['library_ms']:.3f}")
+    shifted = torch.cat([keys[:1], keys])[1:]
+    line(f"scan kernel n={N}, a view shifted by one word, {ROW} calls in a "
+         "row", time_ms(lambda: tile_scan(shifted), calls=ROW), N)
     return ms, extra
 
 
@@ -1329,15 +1435,28 @@ def slice2_timings(dev, card: str, err: dict):
 
     line(f"sortx_torch.histogram 8 bits n={N}",
          time_ms(lambda: sortx_torch.histogram(u, 8, 24)), N)
-    bincount_ms = line(f"torch.bincount of the 8-bit digit n={N}",
+    bincount_ms = line(f"torch.bincount of the 8-bit digit n={N}, {ROW} "
+                       "calls in a row",
                        time_ms(lambda: torch.bincount((keys >> 24) & 0xFF,
-                                                      minlength=256)), N)
+                                                      minlength=256),
+                               calls=ROW), N)
     k64 = u64(keys)
     line(f"sortx_torch.kth_value n={N}",
          time_ms(lambda: sortx_torch.kth_value(u, N // 3)), N)
     line(f"torch.kthvalue int64 n={N}",       # 1.9 s a call: one rep
          time_ms(lambda: torch.kthvalue(k64, N // 3 + 1), reps=1), N)
     del k64
+    line(f"sortx_torch.kth_value f32 n={N}",
+         time_ms(lambda: sortx_torch.kth_value(keys.view(torch.float32),
+                                               N // 3)), N)
+    line(f"sortx_torch.median n={N}",
+         time_ms(lambda: sortx_torch.median(u)), N)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    line(f"the four K5 launches of a kth_value alone n={N}",
+         time_ms(lambda: [tile_histogram(keys, shift, radix=256,
+                                         tile_elems=16384, per_tile=False,
+                                         prefix=zero)
+                          for shift in (24, 16, 8, 0)]), N)
     for k in (64, 1024):
         line(f"sortx_torch.top_k k={k} i32 n={N}",
              time_ms(lambda: sortx_torch.top_k(keys, k)), N)
@@ -1347,14 +1466,44 @@ def slice2_timings(dev, card: str, err: dict):
         line(f"torch.topk k={k} int32 n={N}",
              time_ms(lambda: torch.topk(keys, k)), N)
 
-    ms["histogram"] = timed_kernel(
-        card, f"histogram n={N} bits=8 shift=24",
-        lambda: tile_histogram(keys, 24, radix=256, tile_elems=16384),
-        lambda: histogram_plain(keys, 24, 256, 16384), err, "histogram")
+    # K5 per tile (the TPU kernel's function) on uniform words, ROW calls
+    # in a row, held against its plain version
+    k_ms = time_ms(lambda: tile_histogram(keys, 24, radix=256,
+                                          tile_elems=16384), calls=ROW)
+    got = tile_histogram(keys, 24, radix=256, tile_elems=16384)
+    p_ms = time_ms(lambda: histogram_plain(keys, 24, 256, 16384), reps=1)
+    torch.cuda.synchronize()
+    want = histogram_plain(keys, 24, 256, 16384)
+    err["histogram"] = max(err["histogram"], max_abs_err(got, want))
+    check(torch.equal(got, want),
+          f"histogram n={N} bits=8 shift=24: timed kernel output == plain")
+    what = f"histogram n={N} bits=8 shift=24"
+    ms["histogram"] = (line(f"{what} kernel, uniform words, {ROW} calls in a "
+                            "row", k_ms, N), line(f"{what} plain", p_ms, N))
     # K5 reads n words and writes 256 counts per 16384-word tile; a
     # shift, a mask and an add per word
     extra["histogram"] = dict(bound(4 * N + 4 * 256 * (N // 16384), 3 * N),
                               library_ms=bincount_ms)
+    print(f"bound {what}: {extra['histogram']['bound_ms']!r} ms by "
+          f"{extra['histogram']['bound_by']}")
+    uniform_ms = ms["histogram"][0]
+    for kind in ("all-equal", "two-valued"):
+        x = skewed_words(rng, N, dev, kind)
+        kind_ms = line(f"{what} kernel, {kind} words, {ROW} calls in a row",
+                       time_ms(lambda: tile_histogram(
+                           x, 24, radix=256, tile_elems=16384), calls=ROW), N)
+        line(f"torch.bincount of the 8-bit digit, {kind} words n={N}",
+             time_ms(lambda: torch.bincount((x >> 24) & 0xFF, minlength=256),
+                     reps=2), N)
+        if kind == "all-equal":
+            check(kind_ms <= 2 * uniform_ms, "histogram of all-equal words "
+                  "takes at most twice the time of uniform words")
+        del x
+    line(f"{what} kernel, whole (per_tile=False), uniform words, {ROW} calls "
+         "in a row", time_ms(lambda: tile_histogram(
+             keys, 24, radix=256, tile_elems=16384, per_tile=False),
+             calls=ROW), N)
+    del got, want
     tiles, (rs, rd, rl, _), (B, cap, chunk) = hybrid_tables(rng, dev, 1)
     flat = (tiles[0].reshape(-1),)
     ms["run_mover"] = timed_kernel(

@@ -28,8 +28,10 @@ class Config:
       ops/sort_hybrid.py); "host" runs the stable ``torch.sort`` engine;
       "auto" picks the network for CUDA tensors and the host engine for
       CPU tensors.
-    scan_tile_elems: elements one CTA of the scan kernels covers (a
-      multiple of the 1024-thread CTA).
+    scan_tile_elems: the scan's tile in ``sortx`` (a positive multiple
+      of 1024), carried so that a converted config keeps it. The scan's
+      output does not depend on it, and the scan kernel picks its own
+      tile (``ops/scan.py:SCAN_TILE``) whatever this says.
     sort_tile_elems: the histogram's tile, as in ``sortx`` (clamped to
       8..2048 rows of 128 elements).
     engine_tile_elems, engine_buckets, engine_headroom,

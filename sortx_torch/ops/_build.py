@@ -53,10 +53,10 @@ _ENTRIES = {
     "sortx_bitonic_tail": (_P, _L, _L, _I, _I, _I, _I, _I, _P),
     # (x, ext, stride, ns, nk, s, j_hi, j_lo, force_asc, stream)
     "sortx_bitonic_global": (_P, _L, _L, _I, _I, _I, _I, _I, _I, _P),
-    # (x, out, tile_sums, total, n, tile, inclusive, stream)
+    # (x, out, scratch, total, n, tile, inclusive, stream)
     "sortx_scan": (_P, _P, _P, _P, _L, _L, _I, _P),
-    # (x, out, n, tile, shift, radix, stream)
-    "sortx_histogram": (_P, _P, _L, _L, _I, _I, _P),
+    # (x, out, prefix, n, tile, shift, radix, per_tile, stream)
+    "sortx_histogram": (_P, _P, _P, _L, _L, _I, _I, _I, _P),
     # (srcs[], outs[], fills[], ns, src_len, run_src, run_dst, run_len,
     #  chunk_first, chunk_count, out_len, chunk, stream)
     "sortx_move_runs": (_P, _P, _P, _I, _L, _P, _P, _P, _P, _P, _L, _L, _P),

@@ -3,8 +3,12 @@
 
 Port of ``sortx/ops/select.py``. ``kth_value`` is four rounds of an
 8-bit histogram (K5, ops/histogram.py) that pick the bucket holding
-rank k, narrowing one byte per round; the rank, the prefix and the
-match count stay on the device, so the rounds need no host sync.
+rank k, narrowing one byte per round. The reference parks the words
+outside the chosen prefix in bucket 0 and subtracts them; here K5
+itself counts only the words under the prefix, on the 32-bit radix
+image as it is, so a round is one kernel launch and some 256-entry
+bookkeeping. The rank and the prefix stay on the device: the rounds
+need no host sync.
 ``top_k`` is the reference's tournament on the row network: rows of L
 sort independently, each gives its top k, and one sort of the B*k
 candidates finishes (any global top-k element is top-k in its own row).
@@ -17,9 +21,9 @@ from __future__ import annotations
 import torch
 
 from ..config import Config
-from ..utils.words import as_u64, wrap_i32
+from ..utils.words import wrap_i32
 from .extras import sort_u64
-from .histogram import histogram
+from .histogram import digit_counts
 from .rows import sort_kv_rows, sort_rows
 from .sort import _check_keys, _to_radix_u32, sort
 
@@ -38,22 +42,16 @@ def kth_value(keys: torch.Tensor, k, *, config: Config | None = None):
     if isinstance(k, int) and not 0 <= k < n:
         raise ValueError(f"k={k} out of range for n={n}")
     w, undo = _to_radix_u32(keys.contiguous())
-    u = as_u64(w)
     rank = torch.as_tensor(k, dtype=torch.int64, device=keys.device)
     prefix = torch.zeros((), dtype=torch.int64, device=keys.device)
-    n_match = torch.full((), n, dtype=torch.int64, device=keys.device)
     for shift in (24, 16, 8, 0):
-        m = u >> shift
-        # Elements whose bytes above this round equal the chosen prefix
-        # survive; the rest are parked in bucket 0 and subtracted.
-        digit = torch.where((m >> 8) == prefix, m & 0xFF, 0)
-        hist = histogram(digit.to(torch.int32), bits=8, shift=0,
-                         config=cfg).to(torch.int64)
-        hist[0] += n_match - n
-        cum = torch.cumsum(hist, 0)
+        # only the words whose bytes above this round equal the chosen
+        # prefix are counted (all of them in the first round)
+        hist = digit_counts(w, 8, shift, cfg,
+                            prefix=prefix.to(torch.int32).view(1))
+        cum = torch.cumsum(hist, 0, dtype=torch.int64)
         b = torch.searchsorted(cum, rank.view(1), right=True)[0]
         rank = rank - torch.where(b > 0, cum[(b - 1).clamp(min=0)], 0)
-        n_match = hist[b]
         prefix = (prefix << 8) | b
     return undo(wrap_i32(prefix))
 

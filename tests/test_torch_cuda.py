@@ -502,3 +502,179 @@ def test_block_kernels_take_streams_off_the_16_byte_grid(dev, ns, nk, mode):
     tb.KERNELS[name][1](want, *args)
     torch.cuda.synchronize()
     assert torch.equal(x, want)
+
+
+# --- K4 as a look-back scan and K5 with its prefix filter -------------------
+
+def _scan_input(kind, n, dev):
+    """n words: near 2^31 in magnitude (the sum wraps), all ones (it
+    wraps every step), or the former as a view shifted by one word."""
+    if kind == "ones":
+        return torch.full((n,), -1, dtype=torch.int32, device=dev)
+    rng = np.random.RandomState(n % 1000)
+    x = rng.randint(2**30, 2**31, size=n + 1).astype(np.int32)
+    x[::3] = -x[::3]
+    x = torch.from_numpy(x).to(dev)
+    return x[1:] if kind == "shifted" else x[:n]
+
+
+@pytest.mark.parametrize("n", [1, 31, 1023, 8191, 8192, 8193, (1 << 20) + 7,
+                               1 << 27])
+@pytest.mark.parametrize("kind", ["wrapping", "ones", "shifted"])
+@pytest.mark.parametrize("tile", [8192, 1 << 18])
+def test_scan_lookback_matches_plain(dev, n, kind, tile):
+    """``tile`` is what a config hands down (the port's default and the
+    reference's): the kernel runs, on its own tile, under both."""
+    x = _scan_input(kind, n, dev)
+    for inclusive in (False, True):
+        before = launches["scan"]
+        out, total = tile_scan(x, inclusive=inclusive, tile_elems=tile)
+        pout, ptotal = scan_plain(x, inclusive)
+        torch.cuda.synchronize()
+        assert torch.equal(out, pout) and torch.equal(total, ptotal)
+        assert launches["scan"] == before + 1
+
+
+def test_scan_repeats_give_the_same_bits(dev):
+    """A race in the look-back would change a prefix between runs."""
+    x = _scan_input("wrapping", (1 << 22) + 9, dev)
+    first = tile_scan(x)
+    want = scan_plain(x)
+    assert torch.equal(first[0], want[0]) and torch.equal(first[1], want[1])
+    for _ in range(20):
+        out, total = tile_scan(x)
+        assert torch.equal(out, first[0]) and torch.equal(total, first[1])
+
+
+@pytest.mark.parametrize("tile", [1024, 3072, 1 << 14, 1 << 15, 1 << 18])
+@pytest.mark.parametrize("inclusive", [False, True])
+def test_scan_runs_under_every_tile_a_config_accepts(dev, tile, inclusive):
+    """Any positive multiple of 1024, the reference's default 2^18
+    included, launches the kernel and gives the plain version's bits."""
+    x = _scan_input("wrapping", (1 << 20) + 7, dev)
+    cfg = sortx_torch.Config(scan_tile_elems=tile)
+    before = launches["scan"]
+    out, total = sortx_torch.scan(x, with_total=True, inclusive=inclusive,
+                                  config=cfg)
+    want = scan_plain(x, inclusive)
+    assert launches["scan"] == before + 1
+    assert torch.equal(out, want[0]) and torch.equal(total, want[1])
+
+
+@pytest.mark.parametrize("tile", [1000, 512, 0, -1024])
+def test_scan_rejects_a_tile_no_config_accepts(dev, tile):
+    x = _scan_input("ones", 10_000, dev)
+    with pytest.raises(ValueError):
+        tile_scan(x, tile_elems=tile)
+
+
+def test_scan_on_a_side_stream(dev):
+    x = _scan_input("wrapping", (1 << 22) + 5, dev)
+    want = scan_plain(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out, total = sortx_torch.scan(x, with_total=True)
+    side.synchronize()
+    assert torch.equal(out, want[0]) and torch.equal(total, want[1])
+
+
+def test_interleaved_scans_share_no_scratch(dev):
+    """Two scans in flight at once, on two streams, each with its own
+    descriptors and ticket; then two back to back on one stream."""
+    a = _scan_input("wrapping", (1 << 24) + 1, dev)
+    b = _scan_input("ones", (1 << 24) - 3, dev)
+    want_a, want_b = scan_plain(a), scan_plain(b)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = []
+    for _ in range(5):
+        for x, st in ((a, streams[0]), (b, streams[1])):
+            with torch.cuda.stream(st):
+                got.append(tile_scan(x))
+    got += [tile_scan(a), tile_scan(b)]
+    torch.cuda.synchronize()
+    for i, (out, total) in enumerate(got):
+        want = want_b if i % 2 else want_a
+        assert torch.equal(out, want[0]) and torch.equal(total, want[1])
+
+
+def _hist_words(kind, n, dev):
+    rng = np.random.RandomState(n % 997)
+    if kind == "uniform":
+        x = rng.randint(-2**31, 2**31, size=n).astype(np.int32)
+    elif kind == "equal":
+        x = np.full(n, 0x5A5A5A5A, np.int32)
+    else:
+        x = (rng.randint(0, 2, size=n).astype(np.uint32) * 0x11111111
+             + 0x01020304).astype(np.uint32).view(np.int32)
+    return torch.from_numpy(x).to(dev)
+
+
+def _prefix_of_middle(x, hi_shift):
+    mid = x[x.shape[0] // 2].view(1).to(torch.int64) & 0xFFFFFFFF
+    return (mid >> min(hi_shift, 31)).to(torch.int32)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "equal", "two"])
+@pytest.mark.parametrize("bits", range(1, 9))
+@pytest.mark.parametrize("shift", [0, 7, 24, "top"])
+def test_histogram_kinds_match_plain(dev, kind, bits, shift):
+    """Every digit width, on the tensor and on a view shifted by one
+    word, at a ragged n: per tile and whole, with and without a prefix."""
+    shift = 32 - bits if shift == "top" else shift
+    n = (1 << 18) + 13
+    buf = _hist_words(kind, n + 1, dev)
+    for x in (buf[:n], buf[1:]):
+        prefix = _prefix_of_middle(x, shift + bits)
+        for tile, kw in ((16384, {}), (16384, {"per_tile": False}),
+                         (16384, {"prefix": prefix}),
+                         (1000, {"per_tile": False, "prefix": prefix})):
+            before = launches["histogram"]
+            got = tile_histogram(x, shift, radix=1 << bits, tile_elems=tile,
+                                 **kw)
+            want = histogram_plain(x, shift, 1 << bits, tile,
+                                   kw.get("prefix"))
+            if not kw.get("per_tile", True):
+                want = want.sum(0, dtype=torch.int32)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+            assert launches["histogram"] == before + 1
+
+
+@pytest.mark.parametrize("kind", ["uniform", "equal", "two"])
+@pytest.mark.parametrize("shift", [24, 16, 8, 0])
+@pytest.mark.parametrize("n", [1 << 27, (1 << 20) - 12345])
+def test_histogram_rounds_of_kth_value_match_plain(dev, kind, shift, n):
+    x = _hist_words(kind, n, dev)
+    prefix = _prefix_of_middle(x, shift + 8)
+    want = histogram_plain(x, shift, 256, 16384, prefix)
+    got = tile_histogram(x, shift, radix=256, tile_elems=16384, prefix=prefix)
+    whole = tile_histogram(x, shift, radix=256, tile_elems=16384,
+                           per_tile=False, prefix=prefix)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(whole, want.sum(0, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint32, torch.int32, torch.float32,
+                                   torch.float16, torch.bfloat16])
+def test_kth_value_and_median_match_cpu(dev, dtype):
+    n = (1 << 20) + 77
+    w = _words(9, n, dup=False)
+    if dtype.is_floating_point:
+        k = (w % 2001).to(torch.float32).div(8).sub(100).to(dtype)
+        k[::31] = float("nan")
+        k[::37] = -float("nan")
+        k[::41] = -0.0
+    else:
+        k = w.view(dtype)
+    on = k.to(dev)
+    before = launches["histogram"]
+    for rank in (0, 12345, n // 2, n - 1, torch.tensor(4321)):
+        r = rank.to(dev) if torch.is_tensor(rank) else rank
+        assert torch.equal(_bits(sortx_torch.kth_value(on, r).cpu()),
+                           _bits(sortx_torch.kth_value(k, rank)))
+    assert torch.equal(_bits(sortx_torch.median(on).cpu()),
+                       _bits(sortx_torch.median(k)))
+    assert launches["histogram"] == before + 6 * 4

@@ -118,3 +118,87 @@ def test_errors_match(x, kw, err):
         sortx.histogram(jnp.asarray(x), config=HOST, **kw)
     with pytest.raises(err):
         sortx_torch.histogram(to_torch(x), **kw)
+
+
+# --- the prefix filter (a round of kth_value inside K5) -------------------
+
+def _round_keys(rng, kind, n=20_001):
+    if kind == "uniform":
+        return rng.randint(0, 2**32, size=n, dtype=np.uint32)
+    if kind == "all-equal":
+        return np.full(n, 0x5A5A5A5A, np.uint32)
+    if kind == "two-valued":
+        return (rng.randint(0, 2, size=n).astype(np.uint32) * 0x11111111
+                + 0x01020304).astype(np.uint32)
+    # few distinct bytes at every level: each round narrows a crowd
+    return (rng.randint(0, 3, size=(n, 4)).astype(np.uint32)
+            * np.array([1 << 24, 1 << 16, 1 << 8, 1], np.uint32)).sum(
+                1).astype(np.uint32)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "all-equal", "two-valued",
+                                  "nested"])
+@pytest.mark.parametrize("shift", [24, 16, 8, 0])
+def test_filtered_histogram_is_the_references_round(rng, kind, shift):
+    """The reference's round of kth_value parks the words outside the
+    prefix in bucket 0 and subtracts them (sortx/ops/select.py:60-68);
+    the plain version of K5 with the prefix gives the same 256 counts,
+    per tile too."""
+    x = _round_keys(rng, kind)
+    n = x.shape[0]
+    chosen = int(x[n // 2]) >> (shift + 8) if shift < 24 else 0
+    u = jnp.asarray(x)
+    m = u >> jnp.uint32(shift)
+    match = (m >> jnp.uint32(8)) == jnp.uint32(chosen)
+    digit = jnp.where(match, m & jnp.uint32(0xFF), jnp.uint32(0))
+    want = np.asarray(sortx.histogram(digit, bits=8, shift=0, config=HOST))
+    want = want.copy()
+    want[0] += int(match.sum()) - n
+    xi = to_torch(x).view(torch.int32)
+    prefix = torch.tensor([chosen], dtype=torch.int32)
+    rows = histogram_plain(xi, shift, 256, 2048, prefix)
+    assert rows.shape == (-(-n // 2048), 256) and rows.dtype == torch.int32
+    np.testing.assert_array_equal(rows.sum(0).numpy(), want)
+    assert int(rows.sum()) == int(match.sum())
+    for per_tile in (True, False):      # K5's wrapper on a CPU tensor
+        got = tile_histogram(xi, shift, radix=256, tile_elems=2048,
+                             per_tile=per_tile, prefix=prefix)
+        assert torch.equal(got, rows if per_tile
+                           else rows.sum(0, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("bits, shift", [(8, 24), (4, 30), (1, 31), (8, 28)])
+def test_prefix_is_ignored_where_no_bits_lie_above_the_digit(rng, bits,
+                                                             shift):
+    x = torch.from_numpy(_words(rng, 5000).view(np.int32))
+    prefix = torch.tensor([123], dtype=torch.int32)
+    assert torch.equal(histogram_plain(x, shift, 1 << bits, 1024, prefix),
+                       histogram_plain(x, shift, 1 << bits, 1024))
+
+
+@pytest.mark.parametrize("bits", range(1, 9))
+@pytest.mark.parametrize("shift", [0, 7, 23])
+def test_filtered_histogram_matches_numpy(rng, bits, shift):
+    """Every digit width: counts of the digit among the words whose bits
+    above it equal the prefix (negative int32: a u32 above 2^31)."""
+    x = _words(rng, 9000)
+    x[::5] = x[0]                       # a crowd under one prefix
+    hi = shift + bits
+    chosen = int(x[0]) >> hi
+    keep = (x >> np.uint32(hi)) == chosen
+    want = np.bincount((x[keep] >> np.uint32(shift)) & ((1 << bits) - 1),
+                       minlength=1 << bits)
+    prefix = torch.from_numpy(np.array([chosen], np.uint32).view(np.int32))
+    got = tile_histogram(to_torch(x).view(torch.int32), shift,
+                         radix=1 << bits, tile_elems=1024, per_tile=False,
+                         prefix=prefix)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("prefix", [
+    torch.zeros(1, dtype=torch.int64), torch.zeros(2, dtype=torch.int32)],
+    ids=["int64", "two"])
+def test_tile_histogram_rejects_a_bad_prefix(prefix):
+    x = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tile_histogram(x, 0, radix=256, tile_elems=1024, prefix=prefix)

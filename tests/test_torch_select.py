@@ -169,3 +169,95 @@ def test_sort_u64_rejects_bad_halves():
         sortx_torch.sort_u64(a.view(torch.int32), a)
     with pytest.raises(ValueError):
         sortx_torch.sort_u64(a, a[:3])
+
+
+# --- kth_value on the filtered histogram (four K5 rounds, no int64 pass) --
+
+def _special_floats(rng, dtype, n=6000):
+    """Floats with NaNs of both signs and payloads, signed zeros,
+    infinities and ties."""
+    f = np.round(rng.randn(n) * 3).astype(np.float32)
+    bits = f.view(np.uint32)
+    bits[rng.randint(0, n, 30)] = 0x7FC00000          # +NaN
+    bits[rng.randint(0, n, 30)] = 0xFFC00001          # -NaN, a payload
+    bits[rng.randint(0, n, 30)] = 0x80000000          # -0
+    bits[rng.randint(0, n, 30)] = 0x00000000          # +0
+    bits[rng.randint(0, n, 9)] = 0x7F800000           # +inf
+    bits[rng.randint(0, n, 9)] = 0xFF800000           # -inf
+    return bits.view(np.float32).astype(dtype)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("dtype", [np.float32, np.float16,
+                                   ml_dtypes.bfloat16],
+                         ids=lambda d: np.dtype(d).name)
+def test_kth_value_of_special_floats(rng, dtype, engine):
+    k = _special_floats(rng, dtype)
+    n = k.shape[0]
+    cfg = sortx_torch.Config(engine=engine)
+    for rank in (0, 29, 45, n // 2 - 20, n // 2, n - 60, n - 31, n - 1):
+        _same(sortx_torch.kth_value(to_torch(k), rank, config=cfg),
+              sortx.kth_value(jnp.asarray(k), rank, config=HOST))
+    _same(sortx_torch.median(to_torch(k), config=cfg),
+          sortx.median(jnp.asarray(k), config=HOST))
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("dtype", [np.uint32, np.int32, np.float32,
+                                   np.float16, np.uint16, np.int16],
+                         ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("as_tensor", [False, True], ids=["int", "tensor"])
+def test_kth_value_takes_int_and_tensor_ranks(rng, dtype, engine, as_tensor):
+    n = 5003                            # ragged against the 1024-word tile
+    if np.dtype(dtype).kind == "f":
+        k = _keys(rng, dtype, n)
+    elif np.dtype(dtype).itemsize == 4:
+        k = _keys(rng, dtype, n)
+    else:
+        info = np.iinfo(dtype)
+        k = rng.randint(info.min, info.max + 1, size=n).astype(dtype)
+    cfg = sortx_torch.Config(engine=engine, sort_tile_elems=1024)
+    for rank in (0, 1234, n - 1):
+        got = sortx_torch.kth_value(
+            to_torch(k), torch.tensor(rank) if as_tensor else rank,
+            config=cfg)
+        _same(got, sortx.kth_value(jnp.asarray(k), rank, config=HOST))
+
+
+@pytest.mark.parametrize("kind", ["all-equal", "two-valued", "top-byte"])
+def test_kth_value_on_crowded_keys(rng, kind):
+    """Keys that put whole warps on one digit in every round."""
+    n = 7001
+    k = {"all-equal": np.full(n, 0xDEADBEEF, np.uint32),
+         "two-valued": np.where(rng.randint(0, 2, n) == 1,
+                                np.uint32(0x01020304), np.uint32(0xFEFDFCFB)),
+         "top-byte": (rng.randint(0, 256, n).astype(np.uint32) << 24)
+         | np.uint32(0x00ABCDEF)}[kind].astype(np.uint32)
+    for engine in ENGINES:
+        cfg = sortx_torch.Config(engine=engine)
+        for rank in (0, n // 3, n // 2, n - 1):
+            _same(sortx_torch.kth_value(to_torch(k), rank, config=cfg),
+                  sortx.kth_value(jnp.asarray(k), rank, config=HOST))
+
+
+def test_kth_value_runs_four_filtered_rounds_on_the_radix_image(
+        rng, monkeypatch):
+    """One digit_counts call per byte, on the same int32 image, with the
+    running prefix; no histogram of a re-made digit tensor."""
+    from sortx_torch.ops import select
+    calls = []
+    real = select.digit_counts
+
+    def spy(w, bits, shift, cfg, **kw):
+        calls.append((w.data_ptr(), w.dtype, bits, shift,
+                      int(kw["prefix"]), kw.get("per_tile", False)))
+        return real(w, bits, shift, cfg, **kw)
+    monkeypatch.setattr(select, "digit_counts", spy)
+    k = _keys(rng, np.uint32)
+    got = sortx_torch.kth_value(to_torch(k), 4321)
+    want = int(np.sort(k)[4321])
+    assert int(to_numpy(got)) == want
+    assert len({c[0] for c in calls}) == 1 and calls[0][1] == torch.int32
+    assert [c[2:4] for c in calls] == [(8, 24), (8, 16), (8, 8), (8, 0)]
+    assert [c[4] for c in calls] == [0, want >> 24, want >> 16, want >> 8]
+    assert not any(c[5] for c in calls)
