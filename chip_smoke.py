@@ -29,6 +29,15 @@ u32 keys, 512 MB per stream, or 2048 rows of 2^16):
              merge / merge_kv, unique, run_length_encode, reduce_by_key,
              sum_by_key, partition, sort_segments, sort_kv_segments,
              scan_segments and scan_by_key
+  runtime    ParallelPrimitives(allocate_device()) on Buffers of 2^27
+             (radix_sort, radix_sort_kv of 2^26 + 13, scan with a u32
+             total, check_leaks); sort_large of 2^29 host keys (2^28 if
+             the host's memory is short), sort_kv_large of 2^28 + 13 f32
+             keys with i32 values, sort_large(sort_bits=16,
+             descending=True) at 2^28, each with the time of its steps
+             (key transform, copies, device sorts, host merge); and one
+             flagship entry traced by runtime.profiler, for the share of
+             the traced window in which the card ran a kernel
 
 Every result is checked against torch (torch.sort, torch.cumsum,
 torch.bincount, torch.topk, torch.unique) or numpy on the same input. Each path runs
@@ -50,6 +59,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1579,6 +1589,322 @@ def hybrid_breakdown(card: str, what: str, run, reps: int = 3) -> None:
           f"[{card}]")
 
 
+# --- the runtime layer, the facade and the out-of-core sorts ------------
+
+LARGE = 1 << 29        # sort_large's keys: 4 chunks of the default 2^27
+CHUNK = 1 << 27        # sort_large's default chunk_elems
+
+
+def host_gib_available() -> float:
+    """MemAvailable of /proc/meminfo, in GiB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def radix_image(t: torch.Tensor) -> torch.Tensor:
+    """int64 whose order is the order sortx gives u32 / i32 / f32 keys
+    (the u32 radix image: f32 negatives all bits flipped, the rest the
+    sign bit)."""
+    b = t.view(torch.int32)
+    if t.dtype == torch.float32:
+        b = b ^ ((b >> 31) | -(1 << 31))
+    elif t.dtype == torch.int32:
+        b = b ^ -(1 << 31)
+    return b.to(torch.int64) & 0xFFFFFFFF
+
+
+def chunk_launches(n: int, chunk: int, ns: int, nk: int) -> list:
+    """Per chunk of a sort_large of n, the network's launches by kernel
+    (its pass plan over ns streams padded as sort_network pads)."""
+    out = []
+    for lo in range(0, n, chunk):
+        c = min(chunk, n - lo)
+        np2 = 1 << max((c - 1).bit_length(), 10)
+        out.append(collections.Counter(
+            name for name, _ in tb.pass_plan(ns, np2, nk, c)))
+    return out
+
+
+def check_chunk_launches(what: str, n: int, chunk: int, ns: int,
+                         nk: int) -> None:
+    """The launches of the run just made are those of its chunks' pass
+    plans; each chunk larger than a block launched K1, K2 and K3."""
+    torch.cuda.synchronize()
+    per_chunk = chunk_launches(n, chunk, ns, nk)
+    want = sum(per_chunk, collections.Counter())
+    got = collections.Counter({k: v for k, v in _build.launches.items()
+                               if k in NETWORK})
+    print(f"launches of {what}: {dict(got)}; per chunk "
+          f"{[dict(c) for c in per_chunk]}")
+    check(got == want, f"{what}: the launches are those of its "
+          f"{len(per_chunk)} chunks' pass plans")
+    big = [c for lo, c in zip(range(0, n, chunk), per_chunk)
+           if min(chunk, n - lo) > 1 << tb.block_log(ns)]
+    check(all(all(c[k] > 0 for k in NETWORK) for c in big),
+          f"{what}: each of its {len(big)} chunks above a block launched "
+          "K1, K2 and K3")
+
+
+def facade_checks(dev, card: str) -> dict:
+    """ParallelPrimitives on Buffers of 2^27: radix_sort, radix_sort_kv
+    of n = 2^26 + 13 (the tails untouched), scan into a u32 buffer with
+    the total, each held bit for bit against torch; then the facade
+    beside the bare op on the same tensor."""
+    from sortx_torch.runtime import Buffer, allocate_device
+
+    device = allocate_device()
+    check(device.torch_device == dev and device.n_cores
+          == torch.cuda.get_device_properties(dev).multi_processor_count,
+          f"allocate_device(): {device!r}, {device.n_cores} SMs, "
+          f"{device.hbm_bytes} bytes")
+    pp = sortx_torch.ParallelPrimitives(device)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    keys = cwords(gen, N, dev)
+    k64 = u64(keys)
+    _build.launches.clear()
+
+    kb = Buffer(device, torch.uint32, N)
+    kb.array.view(torch.int32).copy_(keys)
+    pp.radix_sort(kb)
+    check(torch.equal(u64(kb.array), torch.sort(k64).values),
+          f"ParallelPrimitives.radix_sort n={N} == torch.sort")
+
+    n = RAGGED
+    host_vals = np.arange(N, dtype=np.uint32)
+    kb.array.view(torch.int32).copy_(keys)
+    vb = Buffer(device, np.uint32, N)
+    sync = vb.write(host_vals, blocking=False)
+    sync.wait()
+    check(sync.is_complete, f"Buffer.write of {N} words, non-blocking: "
+          "its SyncObject completed")
+    pp.radix_sort_kv(kb, vb, n)
+    ref = torch.sort(k64[:n], stable=True)
+    vals = torch.from_numpy(host_vals.view(np.int32)).to(dev)
+    check(torch.equal(u64(kb.array[:n]), ref.values)
+          and torch.equal(vb.array[:n].view(torch.int32),
+                          vals[:n][ref.indices])
+          and torch.equal(kb.array[n:].view(torch.int32), keys[n:])
+          and torch.equal(vb.array[n:].view(torch.int32), vals[n:]),
+          f"ParallelPrimitives.radix_sort_kv n={n} in buffers of {N} == "
+          "torch.sort(stable=True) + gather, tails untouched")
+    del ref, vals
+
+    src, dst = Buffer(device, torch.int32, N), Buffer(device, np.uint32, N)
+    src.array.copy_(keys)
+    total = pp.scan(dst, src, with_total=True)
+    want, _ = scan_plain(keys)
+    check(torch.equal(dst.array.view(torch.int32), want)
+          and total.dtype == torch.uint32 and total.dim() == 0
+          and int(total.view(torch.int32)) & 0xFFFFFFFF
+          == int(k64.sum()) & 0xFFFFFFFF,
+          f"ParallelPrimitives.scan(dst u32, src, with_total=True) n={N} "
+          "== torch.cumsum, total a 0-d uint32 == sum mod 2^32")
+    del want
+    counts = read_launches("facade", NETWORK + ("scan",))
+
+    restore = lambda: kb.array.view(torch.int32).copy_(keys)  # noqa: E731
+    time_line(card, f"ParallelPrimitives.radix_sort u32 n={N} (Buffer)",
+              time_ms(lambda: pp.radix_sort(kb), restore), N)
+    time_line(card, f"sortx_torch.sort u32 n={N} (the same tensor)",
+              time_ms(lambda: sortx_torch.sort(kb.array), restore), N)
+    time_line(card, f"ParallelPrimitives.scan n={N} (Buffers)",
+              time_ms(lambda: pp.scan(dst, src, with_total=True)), N)
+    time_line(card, f"sortx_torch.scan n={N} (the same tensor)",
+              time_ms(lambda: sortx_torch.scan(src.array, with_total=True)),
+              N)
+    for b in (kb, vb, src, dst):
+        b.destroy()
+    device.check_leaks()
+    check(True, "check_leaks(): every Buffer released")
+    return counts
+
+
+def large_split(dev, card: str, what: str, keys: np.ndarray, chunk: int,
+                sort_bits: int = 32, descending: bool = False,
+                values: np.ndarray | None = None) -> None:
+    """sort_large's (or, with values, sort_kv_large's) steps on its own
+    data, each timed alone: the key transform on the host, the copies to
+    the card, the device sorts of the chunks, the copies back, the host
+    merge and the transform back."""
+    from sortx_torch.ops import out_of_core as oc
+    from sortx_torch.runtime import Stopwatch, native
+
+    omask = np.uint32((1 << sort_bits) - 1)
+    off = oc.chunk_offsets(keys.shape[0], chunk)
+    bounds = list(zip(off[:-1].tolist(), off[1:].tolist()))
+    sw = Stopwatch()
+    sw.start()
+    ku, undo = oc._np_to_radix_u32(keys)
+    if descending:
+        ku = ku ^ omask
+    sw.split()
+    streams = (ku,) if values is None else (ku, values.view(np.uint32))
+    on_card = [[oc.to_card(s[lo:hi], dev) for s in streams]
+               for lo, hi in bounds]
+    sw.split(on_card)
+    if values is None:
+        done = [(sortx_torch.sort(k, sort_bits),) for (k,) in on_card]
+    else:
+        done = [sortx_torch.sort_kv(k, v) for k, v in on_card]
+    sw.split(done)
+    runs = [np.empty_like(s) for s in streams]
+    for (lo, hi), outs in zip(bounds, done):
+        for r, t in zip(runs, outs):
+            oc.from_card(t, r[lo:hi])
+    sw.split()
+    del on_card, done
+    if sort_bits < 32:
+        _, out = native.host_merge(runs[0] & omask, off, values=runs[0])
+    else:
+        out = native.host_merge(runs[0], off, *runs[1:])
+        out = out if values is None else out[0]
+    sw.split()
+    if descending:
+        out = out ^ omask
+    undo(out)
+    sw.stop()
+    m = keys.shape[0]
+    parts = sw.split_times_ms()
+    for part, ms in zip(("key transform (host)", "copies to the card",
+                         "device sorts", "copies back", "host merge",
+                         "transform back (host)"), parts):
+        print(f"time {what} part: {part}: {ms!r} ms = "
+              f"{m / (ms / 1e3):.6g}/s [{card}]", flush=True)
+    print(f"time {what} parts: sum {sum(parts)!r} ms [{card}]", flush=True)
+
+
+def out_of_core_checks(dev, card: str) -> None:
+    """sort_large of 2^29 host u32 keys (4 chunks; 2^28 if the host's
+    free memory cannot hold 2^29 keys four times over), sort_kv_large of
+    2^28 + 13 f32 keys with i32 values (3 chunks, the last ragged), and
+    sort_large(sort_bits=16, descending=True) at 2^28, each held bit for
+    bit against a stable torch.sort of the radix image on the card, with
+    its launches and the time of its parts."""
+    from sortx_torch.runtime import Stopwatch
+
+    gib = host_gib_available()
+    big = LARGE if gib >= 4 * LARGE * 4 / 2**30 else LARGE // 2
+    print(f"host memory available: {gib:.1f} GiB; sort_large runs at "
+          f"n={big}" + ("" if big == LARGE else
+                        f" (not {LARGE}: too little host memory)"))
+    chunk = CHUNK
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+
+    def timed(what, fn, m):
+        torch.cuda.synchronize()
+        _build.launches.clear()
+        sw = Stopwatch()
+        sw.start()
+        out = fn()
+        sw.stop()
+        print(f"time {what} total: {sw.get_ms()!r} ms = "
+              f"{m / (sw.get_ms() / 1e3):.6g}/s [{card}]", flush=True)
+        return out
+
+    card_keys = cwords(gen, big, dev)
+    host = card_keys.cpu().numpy().view(np.uint32)
+    what = f"sort_large u32 n={big}"
+    out = timed(what, lambda: sortx_torch.sort_large(
+        host, chunk_elems=chunk, device=dev), big)
+    check_chunk_launches(what, big, chunk, 1, 1)
+    want = torch.sort(radix_image(card_keys.view(torch.uint32))).values
+    check(torch.equal(u64(torch.from_numpy(out.view(np.int32)).to(dev)),
+                      want), f"{what} == torch.sort on the card")
+    del out, want, card_keys
+    large_split(dev, card, what, host, chunk)
+    del host
+
+    n = LARGE // 2 + 13
+    fk = torch.randn(n, device=dev, generator=gen)
+    fk[::1001] = -0.0
+    kf, vi = fk.cpu().numpy(), np.arange(n, dtype=np.int32)
+    what = f"sort_kv_large f32 keys, i32 values n={n}"
+    ks, vs = timed(what, lambda: sortx_torch.sort_kv_large(
+        kf, vi, chunk_elems=chunk, device=dev), n)
+    check_chunk_launches(what, n, chunk, 3, 2)
+    order = torch.sort(radix_image(fk), stable=True).indices
+    check(torch.equal(torch.from_numpy(ks.view(np.int32)).to(dev),
+                      fk.view(torch.int32)[order])
+          and torch.equal(torch.from_numpy(vs).to(dev),
+                          order.to(torch.int32)),
+          f"{what} == torch.sort(stable=True) of the radix image")
+    del fk, ks, vs, order
+    large_split(dev, card, what, kf, chunk, values=vi)
+    del kf, vi
+
+    n = LARGE // 2
+    card_keys = cwords(gen, n, dev)
+    host = card_keys.cpu().numpy().view(np.uint32)
+    what = f"sort_large u32 sort_bits=16 descending n={n}"
+    out = timed(what, lambda: sortx_torch.sort_large(
+        host, 16, descending=True, chunk_elems=chunk, device=dev), n)
+    check_chunk_launches(what, n, chunk, 3, 2)
+    order = torch.sort((~card_keys) & 0xFFFF, stable=True).indices
+    check(torch.equal(torch.from_numpy(out.view(np.int32)).to(dev),
+                      card_keys[order]),
+          f"{what} == torch.sort(stable=True) of the complemented low "
+          "16 bits")
+    del out, order, card_keys
+    large_split(dev, card, what, host, chunk, 16, descending=True)
+
+
+def idle_share(dev, card: str) -> None:
+    """One flagship entry (stable sort_kv, then scan) at 2^27 under
+    runtime.profiler.trace: the share of the traced window in which a
+    CUDA kernel ran (the union of the kernel intervals)."""
+    import tempfile
+
+    from sortx_torch.runtime import profiler
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    keys = cwords(gen, N, dev).view(torch.uint32)
+    values = torch.arange(N, dtype=torch.int32, device=dev)
+    sortx_torch.entry(keys, values)          # warm
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        with profiler.trace(d):
+            with profiler.annotate("sortx_torch.entry"):
+                sortx_torch.entry(keys, values)
+                torch.cuda.synchronize()
+        (path,) = [os.path.join(d, f) for f in os.listdir(d)]
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    window = [e for e in events if e.get("name") == "sortx_torch.entry"
+              and e.get("cat") == "user_annotation"]
+    check(len(window) >= 1, "the trace holds the annotated entry")
+    w0 = float(window[0]["ts"])
+    w1 = w0 + float(window[0]["dur"])
+    spans = sorted((max(float(e["ts"]), w0),
+                    min(float(e["ts"]) + float(e["dur"]), w1))
+                   for e in events if e.get("cat") == "kernel"
+                   and e.get("ph") == "X")
+    spans = [(a, b) for a, b in spans if b > a]
+    check(len(spans) > 0, f"the trace holds {len(spans)} CUDA kernels "
+          "inside the entry's window")
+    busy, end, gaps = 0.0, spans[0][0], []
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            if a > end:
+                gaps.append(a - end)
+            end = b
+    share = busy / (w1 - w0)
+    print(f"time entry n={N} traced window: {(w1 - w0) / 1e3!r} ms, "
+          f"kernels busy {busy / 1e3!r} ms = {share!r} of it, device idle "
+          f"share {1 - share!r} ({len(spans)} kernels) [{card}]",
+          flush=True)
+    inner = sorted(gaps, reverse=True)
+    print(f"time entry n={N} idle: before the first kernel "
+          f"{(spans[0][0] - w0) / 1e3!r} ms, after the last "
+          f"{(w1 - end) / 1e3!r} ms, between kernels {sum(inner) / 1e3!r} "
+          f"ms in {len(inner)} gaps (largest "
+          f"{[round(g / 1e3, 4) for g in inner[:4]]} ms) [{card}]",
+          flush=True)
+
+
 def main() -> None:
     t0 = lap = time.perf_counter()
 
@@ -1618,6 +1944,10 @@ def main() -> None:
     companion_timings(dev, card, err, companions)
     took("companion timings")
     del companions
+    facade_checks(dev, card)
+    out_of_core_checks(dev, card)
+    idle_share(dev, card)
+    took("runtime and out-of-core path")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": counts[name],
                 "max_abs_err": err[name], "ms": ms[name][0],

@@ -6,7 +6,14 @@ torch tensors. On CUDA tensors every kernel runs as hand-written CUDA
 schedules run as plain PyTorch. This package never imports jax or sortx.
 
 Layer map:
+  ParallelPrimitives               api.py (the Pprims facade)
+  runtime                          runtime/: device.py, buffer.py,
+                                   mirror.py, launcher.py (profiling,
+                                   capture), stopwatch.py, profiler.py,
+                                   cache.py, native.py (host library)
   sort / sort_kv / scan / entry    ops/sort.py, ops/scan.py, entry.py
+  sort_large / sort_kv_large       ops/out_of_core.py (chunks on the card,
+                                   runs merged by runtime/native.py)
   sort_rows / sort_kv_rows         ops/rows.py
   histogram / kth_value / median / top_k
                                    ops/histogram.py, ops/select.py
@@ -26,21 +33,32 @@ Layer map:
   kernels                          csrc/bitonic.cu (K1-K3), csrc/scan.cu
                                    (K4), csrc/histogram.cu (K5),
                                    csrc/shuffle.cu (K6, K7)
+  host library (merge, oracle)     csrc/host_sort.cpp
+  golden oracle (numpy)            reference.py
+  config, default_config           config.py
 """
 
-from .config import Config
+from .api import ParallelPrimitives
+from .config import Config, default_config, set_default_config
 from .entry import entry
 from .ops import (argsort, histogram, is_sorted, kth_value, lexsort, median,
                   merge, merge_kv, partition, reduce_by_key,
                   run_length_encode, scan, scan_by_key, scan_segments,
-                  searchsorted, sort, sort_kv, sort_kv_rows, sort_kv_segments,
-                  sort_kv_u64, sort_rows, sort_segments, sort_u64, sum_by_key,
-                  top_k, unique)
+                  searchsorted, sort, sort_kv, sort_kv_large, sort_kv_rows,
+                  sort_kv_segments, sort_kv_u64, sort_large, sort_rows,
+                  sort_segments, sort_u64, sum_by_key, top_k, unique)
+from . import reference
+from . import runtime
+from . import utils
 
-__all__ = ["Config", "argsort", "entry", "histogram", "is_sorted",
-           "kth_value", "lexsort", "median", "merge", "merge_kv",
-           "partition", "reduce_by_key", "run_length_encode", "scan",
-           "scan_by_key", "scan_segments", "searchsorted", "sort",
-           "sort_kv", "sort_kv_rows", "sort_kv_segments", "sort_kv_u64",
-           "sort_rows", "sort_segments", "sort_u64", "sum_by_key", "top_k",
-           "unique"]
+__version__ = "0.1.0"
+
+__all__ = ["ParallelPrimitives", "Config", "default_config",
+           "set_default_config", "argsort", "entry", "histogram",
+           "is_sorted", "kth_value", "lexsort", "median", "merge",
+           "merge_kv", "partition", "reduce_by_key", "run_length_encode",
+           "scan", "scan_by_key", "scan_segments", "searchsorted", "sort",
+           "sort_kv", "sort_kv_large", "sort_kv_rows", "sort_kv_segments",
+           "sort_kv_u64", "sort_large", "sort_rows", "sort_segments",
+           "sort_u64", "sum_by_key", "top_k", "unique", "reference",
+           "runtime", "utils", "__version__"]

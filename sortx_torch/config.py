@@ -4,13 +4,23 @@ Counterpart of ``sortx/config.py``, carrying only the fields the port
 reads. The TPU tuning fields (radix width, network block size, DMA
 depth, the "auto" engine's size floor, distributed exchange, interpret
 and profiling switches) have no reader here.
+
+The process-wide default (:func:`default_config`, the ops' config when
+none is passed) takes its engine from ``SORTX_ENGINE``, under the port's
+names or the reference's (:data:`ENGINES`: ``pallas`` is the network).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
-__all__ = ["Config", "LOG_BLOCK_MAX", "resolve_engine"]
+__all__ = ["Config", "ENGINES", "LOG_BLOCK_MAX", "default_config",
+           "resolve_engine", "set_default_config"]
+
+# Engine names of sortx's Config and the port's own -> the port's engine.
+ENGINES = {"auto": "auto", "pallas": "network", "network": "network",
+           "hybrid": "hybrid", "host": "host"}
 
 # Largest shared-memory block (log2 elements) the bitonic block kernels
 # take: one stream of 2^15 u32 is 128 KB of the 227 KB a CTA may hold.
@@ -77,3 +87,17 @@ def resolve_engine(cfg: Config, t) -> str:
     if cfg.engine != "auto":
         return cfg.engine
     return "network" if t.device.type == "cuda" else "host"
+
+
+_env_engine = os.environ.get("SORTX_ENGINE", "auto")
+_default = Config(engine=ENGINES.get(_env_engine, _env_engine))
+
+
+def default_config() -> Config:
+    """The config an op runs under when it is given none."""
+    return _default
+
+
+def set_default_config(cfg: Config) -> None:
+    global _default
+    _default = cfg

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .config import Config
+from .config import ENGINES, Config
 
 __all__ = ["to_torch", "to_numpy", "config_from_sortx"]
 
@@ -55,8 +55,6 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
-_ENGINES = {"auto": "auto", "pallas": "network", "hybrid": "hybrid",
-            "host": "host"}
 _PHASE_SORTS = {"bitonic": "bitonic", "xla": "host"}
 
 
@@ -67,7 +65,7 @@ def config_from_sortx(cfg) -> Config:
     to "host". The TPU block size, DMA depth and the "auto" engine's
     size floor have no counterpart: the outputs do not depend on them.
     """
-    return Config(engine=_ENGINES[cfg.engine],
+    return Config(engine=ENGINES[cfg.engine],
                   scan_tile_elems=cfg.scan_tile_elems,
                   sort_tile_elems=cfg.sort_tile_elems,
                   engine_tile_elems=cfg.engine_tile_elems,

@@ -4,10 +4,11 @@ The kernels are compiled from ``sortx_torch/csrc/*.cu`` and nothing
 else, by ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started
 together (``-split-compile 0``: each also compiles its kernels on all
 cores, which halves the wait for ``bitonic.cu``), then linked into one
-shared library with a plain C interface under ``build/sortx_torch/`` at the root of the checkout. The library's
-name carries a hash of the sources and flags, so an unchanged tree loads
-the library it built before. It is loaded with ``ctypes``: every pointer
-and the stream pass as ``c_void_p``.
+shared library with a plain C interface under :data:`BUILD_DIR` (the
+checkout's ``build/sortx_torch/``; ``runtime.cache.enable_cache`` moves
+it). The library's name carries a hash of the sources and flags, so an
+unchanged tree loads the library it built before. It is loaded with
+``ctypes``: every pointer and the stream pass as ``c_void_p``.
 
 A missing ``nvcc`` or a failed build raises; nothing falls back. Each C
 entry launches on the stream it is given (PyTorch's current stream),
@@ -31,8 +32,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["library", "launch", "launches", "on_card", "nvcc_path",
-           "BUILD_DIR", "SOURCES", "NVCC_FLAGS"]
+__all__ = ["library", "launch", "launches", "on_card", "check_device",
+           "nvcc_path", "BUILD_DIR", "SOURCES", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
@@ -133,6 +134,20 @@ def on_card(t: torch.Tensor) -> bool:
         return False
     raise ValueError(f"sortx_torch runs on CUDA or CPU tensors, got "
                      f"{t.device}")
+
+
+def check_device(device) -> torch.device:
+    """``device`` as a ``torch.device`` for an entry point that places
+    its own tensors; a CUDA device without a card raises (nothing falls
+    back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} asked for, but there is no "
+                           "CUDA card (torch.cuda.is_available() is "
+                           "False); pass device='cpu' for the host")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"sortx_torch runs on CUDA or CPU, got {device}")
+    return device
 
 
 def launch(kernel: str, entry: str, device: torch.device, *args) -> None:

@@ -57,6 +57,7 @@ import collections
 import torch
 
 from ..config import LOG_BLOCK_MAX
+from ..runtime.launcher import profiled
 from ..utils.math import cdiv
 from ..utils.words import ordered
 from ._build import launch, on_card
@@ -262,6 +263,7 @@ def _check(x: torch.Tensor, ext: int, num_keys: int, granule: int,
                          f"{granule} within {x.shape[1]}")
 
 
+@profiled("bitonic_block", level="kernel")
 def bitonic_block(x: torch.Tensor, ext: int, num_keys: int,
                   log_block: int, row_log: int = 0) -> torch.Tensor:
     """K1: stages 1..log_block on every 2^log_block block of x[:, :ext];
@@ -279,6 +281,7 @@ def bitonic_block(x: torch.Tensor, ext: int, num_keys: int,
     return x
 
 
+@profiled("bitonic_tail", level="kernel")
 def bitonic_tail(x: torch.Tensor, ext: int, num_keys: int, log_block: int,
                  s: int, force_asc: bool = False) -> torch.Tensor:
     """K2: layers log_block-1..0 of stage s > log_block over x[:, :ext];
@@ -295,6 +298,7 @@ def bitonic_tail(x: torch.Tensor, ext: int, num_keys: int, log_block: int,
     return x
 
 
+@profiled("bitonic_global", level="kernel")
 def bitonic_global(x: torch.Tensor, ext: int, num_keys: int, s: int,
                    j_hi: int, j_lo: int,
                    force_asc: bool = False) -> torch.Tensor:

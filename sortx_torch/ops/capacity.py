@@ -1,10 +1,12 @@
 """Device-memory admission for single-device sorts.
 
-Port of ``sortx/ops/out_of_core.py:check_device_capacity`` (:187-210),
-on ``torch.cuda.mem_get_info``. Same rule: a sort must fit within 90%
-of the card's memory. The network pads to a power of two (at least
-1024) and holds padded * 4 B * streams * 2 (:func:`network_bytes`); the
-hybrid counts its own buffers (``ops/sort_hybrid.py:hybrid_bytes``).
+The byte check under ``sortx/ops/out_of_core.py:check_device_capacity``
+(:187-210), on ``torch.cuda.mem_get_info``, for the port's engines: a
+sort must fit within 90% of the card's memory. The network pads to a
+power of two (at least 1024) and holds padded * 4 B * streams * 2
+(:func:`network_bytes`); the hybrid counts its own buffers
+(``ops/sort_hybrid.py:hybrid_bytes``). The reference's public
+``check_device_capacity(n, n_streams)`` is ``ops/out_of_core.py``'s.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import torch
 
 from ..utils.errors import CapacityError
 
-__all__ = ["check_device_capacity", "network_bytes"]
+__all__ = ["check_device_bytes", "network_bytes"]
 
 
 def network_bytes(n: int, n_streams: int) -> int:
@@ -22,8 +24,7 @@ def network_bytes(n: int, n_streams: int) -> int:
     return padded * 4 * n_streams * 2
 
 
-def check_device_capacity(need: int, device: torch.device,
-                          what: str) -> None:
+def check_device_bytes(need: int, device: torch.device, what: str) -> None:
     """Raise ``CapacityError`` if ``need`` bytes for ``what`` cannot fit
     on ``device``. Only CUDA devices are checked."""
     if device.type != "cuda":
@@ -32,5 +33,5 @@ def check_device_capacity(need: int, device: torch.device,
     if need > int(limit * 0.90):
         raise CapacityError(
             f"{what} needs ~{need / 1e9:.1f} GB of device memory but the "
-            f"device holds {limit / 1e9:.1f} GB; the out-of-core sort is "
-            f"not ported yet (ROADMAP Queue 1 item 12)")
+            f"device holds {limit / 1e9:.1f} GB; use sortx_torch.sort_large "
+            f"(host-staged chunked sort) for inputs beyond the card")

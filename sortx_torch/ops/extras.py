@@ -30,9 +30,10 @@ from __future__ import annotations
 
 import torch
 
-from ..config import Config, resolve_engine
+from ..config import Config, default_config, resolve_engine
+from ..runtime.launcher import profiled
 from ..utils.words import int_view, monotone
-from .capacity import check_device_capacity, network_bytes
+from .capacity import check_device_bytes, network_bytes
 from .sort import (_DTYPES64, _check_key_dtype, _check_keys, _order_mask,
                    _resolve_sort_bits, _sort_key, _to_radix_u32,
                    _to_radix_u64, sort_kv)
@@ -51,8 +52,8 @@ def _network(streams, num_keys: int, what: str):
     """Run the network over the streams (int32 words), with the capacity
     check; returns all of them, sorted."""
     n = streams[0].shape[0]
-    check_device_capacity(network_bytes(n, len(streams)), streams[0].device,
-                          f"{what} of n={n}")
+    check_device_bytes(network_bytes(n, len(streams)), streams[0].device,
+                       f"{what} of n={n}")
     return _bitonic(tuple(streams), num_keys, n)
 
 
@@ -109,6 +110,7 @@ def _check_halves(hi, lo, what: str) -> None:
         raise TypeError(f"{what} expects uint32 hi/lo halves")
 
 
+@profiled("sort_u64")
 def sort_u64(hi: torch.Tensor, lo: torch.Tensor, *, descending: bool = False,
              config: Config | None = None):
     """Stable sort of 64-bit keys given as uint32 (hi, lo) halves.
@@ -119,10 +121,11 @@ def sort_u64(hi: torch.Tensor, lo: torch.Tensor, *, descending: bool = False,
     if hi.shape[0] <= 1:
         return hi, lo
     h2, l2 = sort_u64_words(hi.view(torch.int32), lo.view(torch.int32),
-                            descending, config or Config())
+                            descending, config or default_config())
     return h2.view(torch.uint32), l2.view(torch.uint32)
 
 
+@profiled("sort_kv_u64")
 def sort_kv_u64(hi: torch.Tensor, lo: torch.Tensor, values: torch.Tensor, *,
                 stable: bool = True, descending: bool = False,
                 config: Config | None = None):
@@ -136,17 +139,18 @@ def sort_kv_u64(hi: torch.Tensor, lo: torch.Tensor, values: torch.Tensor, *,
     h2, l2, v2 = sort_kv_u64_words(hi.view(torch.int32),
                                    lo.view(torch.int32),
                                    values.contiguous(), stable, descending,
-                                   config or Config())
+                                   config or default_config())
     return h2.view(torch.uint32), l2.view(torch.uint32), v2
 
 
+@profiled("argsort")
 def argsort(keys: torch.Tensor, sort_bits: int | None = None, *,
             descending: bool = False, config: Config | None = None
             ) -> torch.Tensor:
     """Stable argsort: the int32 permutation that sorts ``keys`` (any key
     dtype of ``sort``, 64-bit included). ``descending`` reverses the key
     order; equal keys still keep ascending positions."""
-    cfg = config or Config()
+    cfg = config or default_config()
     _check_keys(keys, allow64=True)
     sort_bits = _resolve_sort_bits(keys, sort_bits, what="argsort")
     n = keys.shape[0]
@@ -173,6 +177,7 @@ def argsort(keys: torch.Tensor, sort_bits: int | None = None, *,
     return perm.view(torch.int32)
 
 
+@profiled("lexsort")
 def lexsort(keys, *, descending: bool = False,
             config: Config | None = None) -> torch.Tensor:
     """Stable multi-column argsort, ``np.lexsort``'s convention: the LAST
@@ -197,7 +202,7 @@ def lexsort(keys, *, descending: bool = False,
             streams.append(_to_radix_u32(k.contiguous())[0])
     if descending:
         streams = [~s for s in streams]    # complement = reverse lex order
-    cfg = config or Config()
+    cfg = config or default_config()
     idx = _iota(n, keys[0].device)
     if n <= 1:
         return idx

@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from ..config import Config, resolve_engine
+from ..config import Config, default_config, resolve_engine
+from ..runtime.launcher import profiled
 from .radix_kernels import histogram_plain, tile_histogram
 
 __all__ = ["histogram", "histogram_tile", "digit_counts"]
@@ -41,12 +42,13 @@ def digit_counts(xi: torch.Tensor, bits: int, shift: int, cfg: Config, *,
                           per_tile=per_tile, prefix=prefix)
 
 
+@profiled("histogram")
 def histogram(x: torch.Tensor, bits: int = 8, shift: int = 0, *,
               per_tile: bool = False,
               config: Config | None = None) -> torch.Tensor:
     """int32 counts of the ``bits``-wide digit at ``shift`` (1..8 bits,
     0..31): shape (2^bits,), or (num_tiles, 2^bits) with ``per_tile``."""
-    cfg = config or Config()
+    cfg = config or default_config()
     if x.dim() != 1:
         raise ValueError("histogram expects a 1D array")
     if x.dtype not in (torch.uint32, torch.int32):

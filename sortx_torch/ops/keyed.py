@@ -23,7 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from ..config import Config
+from ..config import Config, default_config
+from ..runtime.launcher import profiled
 from ..utils.words import int_view, ordered, wrap_i32
 from .scan import scan
 from .sort import _check_keys, _to_radix_u32, sort_kv
@@ -32,13 +33,14 @@ __all__ = ["partition", "reduce_by_key", "sum_by_key", "run_length_encode",
            "searchsorted", "is_sorted"]
 
 
+@profiled("partition")
 def partition(x: torch.Tensor, mask: torch.Tensor, *,
               config: Config | None = None):
     """Stable partition: returns ``(out, num_true)``, where
     ``out[:num_true]`` are the elements under True in their order and
     ``out[num_true:]`` the rest in theirs (CUB
     ``DevicePartition::Flagged``)."""
-    cfg = config or Config()
+    cfg = config or default_config()
     if x.dim() != 1:
         raise ValueError("partition expects a 1D array")
     if mask.shape != x.shape:
@@ -137,6 +139,7 @@ def _check_sum_args(keys, values, what: str) -> None:
                         f"{values.dtype}")
 
 
+@profiled("reduce_by_key")
 def reduce_by_key(keys: torch.Tensor, values: torch.Tensor, size: int, *,
                   fill_value=None, config: Config | None = None):
     """Sum ``values`` over runs of CONSECUTIVE equal keys (CUB
@@ -147,16 +150,17 @@ def reduce_by_key(keys: torch.Tensor, values: torch.Tensor, size: int, *,
     wrap mod 2^32."""
     _check_sum_args(keys, values, "reduce_by_key")
     return _consecutive_reduce(keys, values, size, fill_value,
-                               config or Config())
+                               config or default_config())
 
 
+@profiled("sum_by_key")
 def sum_by_key(keys: torch.Tensor, values: torch.Tensor, size: int, *,
                fill_value=None, config: Config | None = None):
     """Sum ``values`` grouped by key over the whole array: the distinct
     keys ascending with their totals, ``(keys[size], sums[size],
     num_distinct)``. The grouping sort runs ``stable=False``: the sums
     do not depend on the order of values within a key."""
-    cfg = config or Config()
+    cfg = config or default_config()
     _check_sum_args(keys, values, "sum_by_key")
     if keys.shape[0] == 0:
         return _consecutive_reduce(keys, values, size, fill_value, cfg)
@@ -164,13 +168,15 @@ def sum_by_key(keys: torch.Tensor, values: torch.Tensor, size: int, *,
     return _consecutive_reduce(ks, vs, size, fill_value, cfg)
 
 
+@profiled("run_length_encode")
 def run_length_encode(x: torch.Tensor, size: int, *, fill_value=None,
                       config: Config | None = None):
     """Lengths of consecutive equal-value runs (CUB RunLengthEncode):
     ``(run_values[size], run_lengths[size], num_runs)``, with the fill
     rules of :func:`reduce_by_key`."""
     _check_keys(x)
-    return _consecutive_reduce(x, None, size, fill_value, config or Config())
+    return _consecutive_reduce(x, None, size, fill_value,
+                               config or default_config())
 
 
 def searchsorted(sorted_keys: torch.Tensor, queries: torch.Tensor, *,

@@ -28,10 +28,11 @@ from __future__ import annotations
 
 import torch
 
-from ..config import Config, resolve_engine
+from ..config import Config, default_config, resolve_engine
+from ..runtime.launcher import profiled
 from ..utils.words import FF, int_view, ordered
 from .bitonic import bitonic_merge_streams
-from .capacity import check_device_capacity, network_bytes
+from .capacity import check_device_bytes, network_bytes
 from .sort import _check_keys, _to_radix_u32
 
 __all__ = ["merge", "merge_kv"]
@@ -75,8 +76,8 @@ def _merge_network(ka, kb, payloads_a=(), payloads_b=(), *,
     nt = na + nb
     N = 1 << max(10, (nt - 1).bit_length())
     rows = 1 + stable_idx + len(payloads_a)
-    check_device_capacity(network_bytes(nt, rows), ka.device,
-                          f"merge of n={nt}")
+    check_device_bytes(network_bytes(nt, rows), ka.device,
+                       f"merge of n={nt}")
     x = torch.empty((rows, N), dtype=torch.int32, device=ka.device)
 
     def put(t, xa, xb, fill):
@@ -95,11 +96,12 @@ def _merge_network(ka, kb, payloads_a=(), payloads_b=(), *,
     return [x[0, :nt]] + [x[t, :nt] for t in range(num_keys, rows)]
 
 
+@profiled("merge")
 def merge(a: torch.Tensor, b: torch.Tensor, *, descending: bool = False,
           config: Config | None = None) -> torch.Tensor:
     """Merge two sorted key arrays (u32/i32/f32 or 16-bit, as ``sort``)
     into one sorted array."""
-    cfg = config or Config()
+    cfg = config or default_config()
     _check_pair(a, b)
     if a.shape[0] == 0:
         return b
@@ -116,13 +118,14 @@ def merge(a: torch.Tensor, b: torch.Tensor, *, descending: bool = False,
     return undo(~out if descending else out)
 
 
+@profiled("merge_kv")
 def merge_kv(keys_a: torch.Tensor, values_a: torch.Tensor,
              keys_b: torch.Tensor, values_b: torch.Tensor, *,
              descending: bool = False, config: Config | None = None):
     """Merge two sorted key-value arrays; returns ``(keys, values)``.
     Equal keys take ``a``'s elements first, each input's order kept.
     Values share one dtype between the inputs."""
-    cfg = config or Config()
+    cfg = config or default_config()
     _check_pair(keys_a, keys_b)
     if values_a.shape != keys_a.shape or values_b.shape != keys_b.shape:
         raise ValueError("keys and values must have the same shape")

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ..runtime.launcher import profiled
 from ..utils.math import cdiv
 from ..utils.words import as_u64
 from ._build import launch, on_card
@@ -50,6 +51,7 @@ def histogram_plain(x: torch.Tensor, shift: int, radix: int,
         :tiles * radix].view(tiles, radix).to(torch.int32)
 
 
+@profiled("histogram", level="kernel")
 def tile_histogram(x: torch.Tensor, shift: int, *, radix: int,
                    tile_elems: int, per_tile: bool = True,
                    prefix: torch.Tensor | None = None) -> torch.Tensor:

@@ -23,7 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from ..config import Config, resolve_engine
+from ..config import Config, default_config, resolve_engine
+from ..runtime.launcher import profiled
 from .sort import _check_key_dtype, _to_radix_u32, _value_words
 from .sort_host import host_rows
 from .sort_network import network_rows
@@ -42,13 +43,14 @@ def _check(keys: torch.Tensor) -> None:
     _check_key_dtype(keys.dtype, "sort_rows")
 
 
+@profiled("sort_rows")
 def sort_rows(keys: torch.Tensor, *, descending: bool = False,
               config: Config | None = None) -> torch.Tensor:
     """Sort every row of a [B, L] tensor independently.
 
     Keys follow the dtype contract of ``sort`` (u32/i32/f32 and 16-bit
     keys); batch and row length are free."""
-    cfg = config or Config()
+    cfg = config or default_config()
     _check(keys)
     B, L = keys.shape
     if B == 0 or L <= 1:
@@ -60,12 +62,13 @@ def sort_rows(keys: torch.Tensor, *, descending: bool = False,
     return undo(~out if descending else out)
 
 
+@profiled("sort_kv_rows")
 def sort_kv_rows(keys: torch.Tensor, values: torch.Tensor, *,
                  descending: bool = False, config: Config | None = None):
     """Stable per-row key-value sort of [B, L] tensors: values follow
     keys, and equal keys keep their in-row order. Values may be any 8-,
     16-, 32- or 64-bit dtype."""
-    cfg = config or Config()
+    cfg = config or default_config()
     _check(keys)
     if values.shape != keys.shape:
         raise ValueError("keys and values must have the same shape")

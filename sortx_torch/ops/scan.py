@@ -18,7 +18,8 @@ from __future__ import annotations
 
 import torch
 
-from ..config import Config, resolve_engine
+from ..config import Config, default_config, resolve_engine
+from ..runtime.launcher import profiled
 from ..utils.math import cdiv
 from ..utils.words import wrap_i32
 from ._build import launch, on_card
@@ -39,6 +40,7 @@ def scan_plain(x: torch.Tensor, inclusive: bool = False):
     return wrap_i32(out), wrap_i32(incl[-1])
 
 
+@profiled("scan", level="kernel")
 def tile_scan(x: torch.Tensor, *, inclusive: bool = False,
               tile_elems: int = Config.scan_tile_elems):
     """K4: (scan, total) of a non-empty 1-D int32 tensor, mod 2^32.
@@ -69,6 +71,7 @@ def tile_scan(x: torch.Tensor, *, inclusive: bool = False,
     return out, total[0]
 
 
+@profiled("scan")
 def scan(x: torch.Tensor, *, with_total: bool = False,
          inclusive: bool = False, config: Config | None = None):
     """Prefix sum of a 1-D int32/uint32 tensor (exclusive by default).
@@ -76,7 +79,7 @@ def scan(x: torch.Tensor, *, with_total: bool = False,
     Any length; arithmetic wraps mod 2^32. Returns the scan in x's dtype,
     and with ``with_total`` also the grand total as a 0-dim tensor.
     """
-    cfg = config or Config()
+    cfg = config or default_config()
     if x.dim() != 1:
         raise ValueError("scan expects a 1D array")
     if x.dtype not in (torch.int32, torch.uint32):

@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from ..config import Config
+from ..config import Config, default_config
+from ..runtime.launcher import profiled
 from ..utils.words import wrap_i32
 from .extras import sort_kv_u64_words, sort_u64_words
 from .sort import _check_keys, _to_radix_u32
@@ -38,11 +39,12 @@ def _segment_ids(offsets, n: int, device) -> torch.Tensor:
                                        side="right") - 1)
 
 
+@profiled("sort_segments")
 def sort_segments(keys: torch.Tensor, offsets, *, descending: bool = False,
                   config: Config | None = None) -> torch.Tensor:
     """Sort each ``keys[offsets[i]:offsets[i+1]]`` on its own (keys as
     ``sort`` takes them, 32-bit or narrower); segment bounds stay."""
-    cfg = config or Config()
+    cfg = config or default_config()
     _check_keys(keys)
     n = keys.shape[0]
     if n <= 1:
@@ -55,11 +57,12 @@ def sort_segments(keys: torch.Tensor, offsets, *, descending: bool = False,
     return undo(~lo if descending else lo)
 
 
+@profiled("sort_kv_segments")
 def sort_kv_segments(keys: torch.Tensor, values: torch.Tensor, offsets, *,
                      descending: bool = False, config: Config | None = None):
     """Stable segmented key-value sort: within each segment, values
     follow their keys and equal keys keep their order."""
-    cfg = config or Config()
+    cfg = config or default_config()
     _check_keys(keys)
     if values.shape != keys.shape:
         raise ValueError("keys and values must have the same shape")

@@ -18,7 +18,8 @@ from __future__ import annotations
 
 import torch
 
-from ..config import Config
+from ..config import Config, default_config
+from ..runtime.launcher import profiled
 from ..utils.words import as_u64, int_view, wrap_i32
 from .keyed import scatter_kept
 from .scan import scan
@@ -43,13 +44,28 @@ def _check_words(x: torch.Tensor, what: str, noun: str) -> None:
                         f"{x.dtype}")
 
 
+def _run_keys(keys: torch.Tensor) -> torch.Tensor:
+    """The keys as ``sortx/ops/segscan.py:116`` compares them: by value
+    (float NaNs never equal, -0.0 == +0.0), with f32, f64 and bf16
+    subnormals as zero, since XLA flushes them there (on the CPU and the
+    TPU); f16 keys keep theirs (XLA compares them as f32, where they are
+    normal)."""
+    if not keys.is_floating_point():
+        return int_view(keys)
+    if keys.dtype == torch.float16:
+        return keys
+    sub = keys.abs() < torch.finfo(keys.dtype).tiny
+    return torch.where(sub, torch.zeros_like(keys), keys)
+
+
+@profiled("scan_segments")
 def scan_segments(x: torch.Tensor, offsets, *, with_totals: bool = False,
                   inclusive: bool = False, config: Config | None = None):
     """Prefix-scan each ``x[offsets[i]:offsets[i+1]]`` on its own
     (exclusive by default) for int32/uint32 x, mod 2^32; ``offsets`` as
     in ``sort_segments``. With ``with_totals`` also the [S] segment
     sums."""
-    cfg = config or Config()
+    cfg = config or default_config()
     if x.dim() != 1:
         raise ValueError("scan_segments expects a 1D array")
     _check_words(x, "scan_segments", "arrays")
@@ -73,13 +89,14 @@ def scan_segments(x: torch.Tensor, offsets, *, with_totals: bool = False,
     return out, wrap_i32(g[offsets[1:]] - g[offsets[:-1]]).view(x.dtype)
 
 
+@profiled("scan_by_key")
 def scan_by_key(keys: torch.Tensor, values: torch.Tensor, *,
                 inclusive: bool = False, config: Config | None = None):
     """Prefix-scan ``values`` (int32/uint32, mod 2^32) within runs of
     equal consecutive keys (CUB ``DeviceScan::*SumByKey``): a key that
-    comes back later starts a new run. Keys compare by value (float NaNs
-    never equal, -0.0 == +0.0), as ``!=`` does."""
-    cfg = config or Config()
+    comes back later starts a new run. Keys compare as ``sortx``'s
+    ``!=`` does under XLA (:func:`_run_keys`)."""
+    cfg = config or default_config()
     if keys.dim() != 1 or values.dim() != 1:
         raise ValueError("scan_by_key expects 1D arrays")
     if keys.shape != values.shape:
@@ -89,7 +106,7 @@ def scan_by_key(keys: torch.Tensor, values: torch.Tensor, *,
     if n == 0:
         return values
     xi = values.contiguous().view(torch.int32)
-    k = keys if keys.is_floating_point() else int_view(keys)
+    k = _run_keys(keys)
     first = torch.ones(n, dtype=torch.bool, device=keys.device)
     first[1:] = k[1:] != k[:-1]
     run = scan(first.to(torch.int32), inclusive=True, config=cfg).long() - 1

@@ -20,7 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from ..config import Config
+from ..config import Config, default_config
+from ..runtime.launcher import profiled
 from ..utils.words import wrap_i32
 from .extras import sort_u64
 from .histogram import digit_counts
@@ -30,11 +31,12 @@ from .sort import _check_keys, _to_radix_u32, sort
 __all__ = ["kth_value", "median", "top_k"]
 
 
+@profiled("kth_value")
 def kth_value(keys: torch.Tensor, k, *, config: Config | None = None):
     """The value of rank ``k`` (0-based) in the ascending sort of
     ``keys``, as a 0-d tensor of ``keys.dtype``. ``k`` is an int or a
     0-d integer tensor on the keys' device."""
-    cfg = config or Config()
+    cfg = config or default_config()
     _check_keys(keys)
     n = keys.shape[0]
     if n == 0:
@@ -56,6 +58,7 @@ def kth_value(keys: torch.Tensor, k, *, config: Config | None = None):
     return undo(wrap_i32(prefix))
 
 
+@profiled("median")
 def median(keys: torch.Tensor, *, config: Config | None = None):
     """Lower median: ``sort(keys)[(n - 1) // 2]`` without the sort."""
     return kth_value(keys, (keys.shape[0] - 1) // 2, config=config)
@@ -74,11 +77,12 @@ def _top_k_shape(n: int, k: int):
     return B, L
 
 
+@profiled("top_k")
 def top_k(keys: torch.Tensor, k: int, *, return_indices: bool = False,
           config: Config | None = None):
     """The ``k`` largest keys in descending order; with
     ``return_indices`` also their int32 indices, ties to the lowest."""
-    cfg = config or Config()
+    cfg = config or default_config()
     _check_keys(keys)
     n = keys.shape[0]
     if not 0 < k <= n:

@@ -28,6 +28,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..runtime.launcher import profiled
 from ..utils.math import cdiv
 from ._build import launch, on_card
 
@@ -155,6 +156,7 @@ def _check_streams(srcs, out_len: int, chunk: int):
                              "length on one device")
 
 
+@profiled("run_mover", level="kernel")
 def move_runs(srcs, run_src: torch.Tensor, run_dst: torch.Tensor,
               run_len: torch.Tensor, out_len: int, *, fills=None,
               chunk: int = CHUNK_ELEMS) -> tuple:
@@ -207,6 +209,7 @@ def apply_runs_plain(src: torch.Tensor, plan, out_len: int,
                            p_len, out_len, (0,))[0]
 
 
+@profiled("piece_mover", level="kernel")
 def apply_runs(src: torch.Tensor, plan, out_len: int, *,
                chunk: int = CHUNK_ELEMS) -> torch.Tensor:
     """K7: apply a piece plan from :func:`build_piece_plan` to the 1-D

@@ -27,9 +27,10 @@ from __future__ import annotations
 
 import torch
 
-from ..config import Config, resolve_engine
+from ..config import Config, default_config, resolve_engine
+from ..runtime.launcher import profiled
 from ..utils.words import SIGN, join64, monotone, split64
-from .capacity import check_device_capacity, network_bytes
+from .capacity import check_device_bytes, network_bytes
 from .sort_host import sort_host, sort_kv_host
 from .sort_hybrid import hybrid_bytes, sort_hybrid, sort_kv_hybrid
 from .sort_network import network_streams, sort_kv_network, sort_network
@@ -181,6 +182,7 @@ def _sort_key(k: torch.Tensor, sort_bits: int) -> torch.Tensor:
     return k if sort_bits >= 32 else k & _order_mask(sort_bits)
 
 
+@profiled("sort")
 def sort(keys: torch.Tensor, sort_bits: int | None = None, *,
          descending: bool = False, config: Config | None = None
          ) -> torch.Tensor:
@@ -190,7 +192,7 @@ def sort(keys: torch.Tensor, sort_bits: int | None = None, *,
     uint32 keys, and 64-bit keys sort on all 64. The result lives on the
     keys' device.
     """
-    cfg = config or Config()
+    cfg = config or default_config()
     _check_keys(keys, allow64=True)
     sort_bits = _resolve_sort_bits(keys, sort_bits)
     n = keys.shape[0]
@@ -214,12 +216,12 @@ def sort(keys: torch.Tensor, sort_bits: int | None = None, *,
         if engine == "host":
             out = sort_host(k, sort_bits)
         elif engine == "hybrid":
-            check_device_capacity(
+            check_device_bytes(
                 hybrid_bytes(n, 1 if sort_bits >= 32 else 2, cfg),
                 keys.device, f"hybrid sort of n={n}")
             out = sort_hybrid(k, sort_bits, cfg)
         else:
-            check_device_capacity(
+            check_device_bytes(
                 network_bytes(n, network_streams(n, sort_bits, False, True)),
                 keys.device, f"sort of n={n}")
             out = sort_network(k, sort_bits)
@@ -228,6 +230,7 @@ def sort(keys: torch.Tensor, sort_bits: int | None = None, *,
     return undo(out)
 
 
+@profiled("sort_kv")
 def sort_kv(keys: torch.Tensor, values: torch.Tensor,
             sort_bits: int | None = None, *, stable: bool = True,
             descending: bool = False, config: Config | None = None):
@@ -236,7 +239,7 @@ def sort_kv(keys: torch.Tensor, values: torch.Tensor,
     ``stable=False`` lets the network drop its index stream; the order
     of values under equal keys is then unspecified.
     """
-    cfg = config or Config()
+    cfg = config or default_config()
     _check_keys(keys, allow64=True)
     sort_bits = _resolve_sort_bits(keys, sort_bits)
     if values.shape != keys.shape:
@@ -262,13 +265,13 @@ def sort_kv(keys: torch.Tensor, values: torch.Tensor,
         ks, vs = sort_kv_host(k, v, sort_bits)
     elif engine == "hybrid":
         # always stable, whatever ``stable`` says
-        check_device_capacity(
+        check_device_bytes(
             hybrid_bytes(n, 2 if sort_bits >= 32 else 3, cfg),
             keys.device, f"hybrid sort_kv of n={n}")
         ks, vs = sort_kv_hybrid(k, v[0], sort_bits, cfg)
         vs = (vs,)
     else:
-        check_device_capacity(
+        check_device_bytes(
             network_bytes(n, network_streams(n, sort_bits, True, stable,
                                              len(v))),
             keys.device, f"sort_kv of n={n}")

@@ -12,13 +12,15 @@ from __future__ import annotations
 
 import torch
 
-from ..config import Config
+from ..config import Config, default_config
+from ..runtime.launcher import profiled
 from .keyed import _consecutive_reduce
 from .sort import _check_keys, sort
 
 __all__ = ["unique"]
 
 
+@profiled("unique")
 def unique(x: torch.Tensor, size: int, *, assume_sorted: bool = False,
            fill_value=None, config: Config | None = None):
     """Sorted distinct values of ``x`` with their multiplicities:
@@ -26,7 +28,7 @@ def unique(x: torch.Tensor, size: int, *, assume_sorted: bool = False,
     ``min(num_unique, size)`` slots are valid; later value slots hold
     ``fill_value`` (default: the last distinct value) and counts 0.
     ``assume_sorted`` skips the sort of an ascending ``x``."""
-    cfg = config or Config()
+    cfg = config or default_config()
     _check_keys(x)
     if size < 1:
         raise ValueError("size must be >= 1")

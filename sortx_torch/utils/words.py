@@ -14,8 +14,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["SIGN", "FF", "as_u64", "wrap_i32", "ordered", "monotone",
-           "split64", "join64", "int_view"]
+__all__ = ["SIGN", "FF", "INTS", "as_u64", "wrap_i32", "ordered",
+           "monotone", "split64", "join64", "int_view"]
 
 SIGN = -(1 << 31)   # the sign bit as an int32
 FF = -1             # the word 0xFFFFFFFF as an int32
@@ -31,14 +31,14 @@ def wrap_i32(v: torch.Tensor) -> torch.Tensor:
     return (((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
 
 
-_INTS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+INTS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
 def int_view(t: torch.Tensor) -> torch.Tensor:
     """``t`` viewed as the signed integer dtype of its width: the form in
     which any dtype (uint32 and uint64 included) gathers, scatters and
     takes ``torch.where``."""
-    return t.view(_INTS[t.element_size()])
+    return t.view(INTS[t.element_size()])
 
 
 def split64(x: torch.Tensor):

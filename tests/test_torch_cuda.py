@@ -678,3 +678,135 @@ def test_kth_value_and_median_match_cpu(dev, dtype):
     assert torch.equal(_bits(sortx_torch.median(on).cpu()),
                        _bits(sortx_torch.median(k)))
     assert launches["histogram"] == before + 6 * 4
+
+
+# --- the runtime layer, the facade and the out-of-core sort on the card ---
+
+
+def test_buffer_nonblocking_write_completes(dev):
+    from sortx_torch.runtime import Buffer, SyncObject, allocate_device
+
+    device = allocate_device()
+    assert device.torch_device == torch.device("cuda", 0)
+    assert device.n_cores == torch.cuda.get_device_properties(
+        0).multi_processor_count
+    host = np.random.RandomState(3).randint(0, 2**32, size=1 << 22,
+                                            dtype=np.uint32)
+    buf = Buffer(device, np.uint32, 1 << 22)
+    assert buf.array.is_cuda
+    sync = buf.write(host, blocking=False)
+    assert isinstance(sync, SyncObject) and sync._event is not None
+    sync.wait()
+    assert sync.is_complete
+    np.testing.assert_array_equal(buf.read(), host)
+    buf.destroy()
+    device.check_leaks()
+
+
+def test_parallel_primitives_with_n_short(dev):
+    from sortx_torch.runtime import Buffer, allocate_device
+
+    device = allocate_device()
+    pp = sortx_torch.ParallelPrimitives(device)
+    size, n = 1 << 20, (1 << 20) - 1000 + 13
+    rng = np.random.RandomState(4)
+    keys = rng.randint(0, 2**32, size=size, dtype=np.uint32)
+    vals = np.arange(size, dtype=np.uint32)
+    kb, vb = Buffer(device, np.uint32, size), Buffer(device, np.uint32, size)
+    kb.write(keys)
+    vb.write(vals)
+    pp.radix_sort_kv(kb, vb, n)
+    order = np.argsort(keys[:n], kind="stable")
+    np.testing.assert_array_equal(kb.read(), np.concatenate(
+        [keys[:n][order], keys[n:]]))
+    np.testing.assert_array_equal(vb.read(), np.concatenate(
+        [vals[:n][order], vals[n:]]))
+    kb.write(keys)
+    pp.radix_sort(kb, n)
+    np.testing.assert_array_equal(kb.read()[:n], np.sort(keys[:n]))
+    dst = Buffer(device, np.uint32, size)
+    dst.fill(7)
+    total = pp.scan(dst, kb, n, with_total=True)
+    wide = np.sort(keys[:n]).astype(np.uint64)
+    assert total.dtype == torch.uint32 and total.is_cuda
+    assert int(total.view(torch.int32)) & 0xFFFFFFFF == int(
+        wide.sum() & 0xFFFFFFFF)
+    np.testing.assert_array_equal(dst.read()[:n], ((np.cumsum(wide) - wide)
+                                                   & 0xFFFFFFFF))
+    assert np.all(dst.read()[n:] == 7)
+    for b in (kb, vb, dst):
+        b.destroy()
+    device.check_leaks()
+
+
+def test_sort_large_chunks_on_the_card(dev):
+    rng = np.random.RandomState(5)
+    n, chunk = 1 << 22, 1 << 20
+    k = rng.randint(0, 2**32, size=n, dtype=np.uint32)
+    launches.clear()
+    np.testing.assert_array_equal(sortx_torch.sort_large(k, chunk_elems=chunk),
+                                  np.sort(k))
+    assert launches["bitonic_block"] == 4
+    assert launches["bitonic_tail"] > 0 and launches["bitonic_global"] > 0
+    kf = rng.randn(n).astype(np.float32)
+    v = np.arange(n, dtype=np.int32)
+    ks, vs = sortx_torch.sort_kv_large(kf, v, chunk_elems=chunk,
+                                       descending=True)
+    order = np.argsort(-kf, kind="stable")
+    np.testing.assert_array_equal(ks, kf[order])
+    np.testing.assert_array_equal(vs, v[order])
+
+
+def test_kernel_rows_equal_launches(dev, tmp_path):
+    """At level="kernel" each kernel launch writes one row, named as the
+    kernel: the rows of one sort_kv count what _build.launches counts."""
+    import collections
+
+    from sortx_torch.runtime import toggle_profiling
+
+    csv = tmp_path / "prof.csv"
+    k = _words(6, 1 << 20, dup=True).to(dev)
+    v = torch.arange(1 << 20, dtype=torch.int32, device=dev)
+    launches.clear()
+    toggle_profiling(True, str(csv), level="kernel")
+    try:
+        sortx_torch.sort_kv(k, v)
+    finally:
+        toggle_profiling(False, level="op")
+    rows = collections.Counter(r.split(",")[0]
+                               for r in csv.read_text().splitlines())
+    assert rows.pop("sort_kv") == 1
+    assert rows == collections.Counter(launches) and len(rows) == 3
+
+
+def test_no_rows_while_a_graph_is_captured(dev, tmp_path):
+    """A sort captured into a CUDA graph writes no profile row and does
+    not synchronise; the replayed graph sorts."""
+    from sortx_torch.ops.sort_network import sort_network
+    from sortx_torch.runtime import toggle_profiling
+
+    csv = tmp_path / "prof.csv"
+    src = _words(7, 1 << 18, dup=False).to(dev)
+    keys = src.clone()
+    sort_network(keys, 32)                  # builds, warms the allocator
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    toggle_profiling(True, str(csv), level="kernel")
+    try:
+        with torch.cuda.graph(graph):
+            out = sort_network(keys, 32)
+    finally:
+        toggle_profiling(False, level="op")
+    assert not csv.exists() or csv.read_text() == ""
+    graph.replay()
+    torch.cuda.synchronize()
+    want = torch.sort(src.to(torch.int64) & 0xFFFFFFFF).values
+    assert torch.equal(out.to(torch.int64) & 0xFFFFFFFF, want)
+
+
+def test_device_capacity_keys_on_the_card(dev):
+    from sortx_torch.ops.out_of_core import device_capacity_keys
+
+    budget = int(torch.cuda.mem_get_info()[1] * 0.90)
+    assert device_capacity_keys(1) == 1 << ((budget // 8).bit_length() - 1)
+    assert device_capacity_keys(3) == 1 << ((budget // 24).bit_length() - 1)

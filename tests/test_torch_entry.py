@@ -1,6 +1,7 @@
 """The flagship slice end to end, the import boundary, and convert.py."""
 
 import ast
+import inspect
 import pathlib
 import subprocess
 import sys
@@ -37,7 +38,7 @@ def test_flagship_matches_graft_entry(engine):
 def test_import_leaves_jax_out():
     """A fresh interpreter imports sortx_torch without jax or sortx."""
     code = ("import sys; before = set(sys.modules); import sortx_torch; "
-            "import sortx_torch.convert; "
+            "import sortx_torch.convert, sortx_torch.runtime.native; "
             "new = {m.split('.')[0] for m in set(sys.modules) - before}; "
             "bad = new & {'jax', 'jaxlib', 'sortx'}; "
             "assert not bad, bad; print('clean')")
@@ -114,3 +115,64 @@ def test_flagship_total_is_the_wrapped_sum():
     want = sortx.scan(jnp.asarray(to_numpy(ks).view(np.int32)),
                       config=sortx.Config(engine="host"))
     np.testing.assert_array_equal(to_numpy(s), np.asarray(want))
+
+
+# The reference's top-level names that belong to its distributed layer,
+# which the port does not carry yet.
+DISTRIBUTED = {"dist_scan", "dist_sort", "dist_sort_kv", "dist_sort_padded",
+               "dist_sort_kv_padded", "make_sort_mesh", "parallel"}
+
+
+def _call_shape(fn):
+    """(name, kind, default) of each parameter: the signature without its
+    annotations, which name torch types in the port."""
+    return [(p.name, p.kind, p.default)
+            for p in inspect.signature(fn).parameters.values()]
+
+
+def _same_call_shape(port_fn, ref_fn):
+    """The reference's parameters, plus at most a keyword-only ``device``
+    at the end."""
+    got, want = _call_shape(port_fn), _call_shape(ref_fn)
+    if got and got[-1][:2] == ("device", inspect.Parameter.KEYWORD_ONLY):
+        got = got[:-1]
+    return got == want
+
+
+@pytest.mark.parametrize("name", sorted(set(sortx.__all__) - DISTRIBUTED))
+def test_top_level_surface(name):
+    """Every non-distributed top-level name of sortx exists in
+    sortx_torch, with the reference's signature. ``Config`` is the one
+    exception: its fields are the port's own (sortx_torch/config.py)."""
+    assert name in sortx_torch.__all__ and hasattr(sortx_torch, name)
+    ref, port = getattr(sortx, name), getattr(sortx_torch, name)
+    if name == "Config" or not callable(ref):
+        return
+    assert _same_call_shape(port, ref), (inspect.signature(port),
+                                         inspect.signature(ref))
+    if name == "ParallelPrimitives":
+        for meth in ("radix_sort", "radix_sort_kv", "scan"):
+            assert _same_call_shape(getattr(port, meth), getattr(ref, meth))
+
+
+@pytest.mark.parametrize("name", sorted(sortx.runtime.__all__))
+def test_runtime_surface(name):
+    """sortx.runtime's names exist in sortx_torch.runtime; its functions
+    keep the reference's signatures (warmup adds ``device``)."""
+    ref, port = getattr(sortx.runtime, name), getattr(sortx_torch.runtime,
+                                                      name)
+    if inspect.isfunction(ref):
+        assert _same_call_shape(port, ref), (inspect.signature(port),
+                                             inspect.signature(ref))
+
+
+def test_ops_surface():
+    for name in ("sort_large", "sort_kv_large", "check_device_capacity",
+                 "device_capacity_keys", "sort_xla", "sort_kv_xla"):
+        assert name in sortx_torch.ops.__all__
+        assert hasattr(sortx.ops, name)
+    for name in ("sort_large", "sort_kv_large", "check_device_capacity",
+                 "device_capacity_keys"):
+        assert _same_call_shape(getattr(sortx_torch.ops, name),
+                                getattr(sortx.ops, name)), name
+    assert sortx_torch.__version__ == sortx.__version__

@@ -9,6 +9,7 @@ associative scan; both are mod 2^32 and must agree bit for bit. Offsets
 include empty segments, at the ends too.
 """
 
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -176,3 +177,33 @@ def test_segscan_errors():
             (lambda: sortx_torch.scan_by_key(x, x[:3]), ValueError)):
         with pytest.raises(err):
             call()
+
+
+@pytest.mark.parametrize("kdtype", [np.float32, np.float64, np.float16,
+                                    ml_dtypes.bfloat16],
+                         ids=lambda d: np.dtype(d).name)
+def test_scan_by_key_subnormal_keys(kdtype):
+    """Subnormal float keys group as ``sortx`` groups them under XLA:
+    f32, f64 and bf16 subnormals equal zero (flushed), f16 ones keep
+    their values (compared as f32, where they are normal). The first
+    case is the minimal input of the fault: f32 keys of bits
+    [0, 0, 1, 1, 2, 5, 5], values of 1, where the reference gives
+    [0, 1, ..., 6]."""
+    ints = {2: np.uint16, 4: np.uint32,
+            8: np.uint64}[np.dtype(kdtype).itemsize]
+    sign = ints(1) << ints(8 * np.dtype(ints).itemsize - 1)
+    x = np.ones(7, np.int32)
+    old = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", kdtype == np.float64)
+    try:
+        for bits in ([0, 0, 1, 1, 2, 5, 5],
+                     [0, sign, sign | 1, 1, 7, sign | 3, 0]):
+            k = np.asarray(bits, ints).view(kdtype)
+            want = sortx.scan_by_key(jnp.asarray(k), jnp.asarray(x))
+            if kdtype == np.float32 and bits[1] == 0:
+                np.testing.assert_array_equal(np.asarray(want), np.arange(7))
+            for engine in ENGINES:
+                _same(sortx_torch.scan_by_key(to_torch(k), to_torch(x),
+                                              config=_cfg(engine)), want)
+    finally:
+        jax.config.update("jax_enable_x64", old)
