@@ -38,6 +38,20 @@ u32 keys, 512 MB per stream, or 2048 rows of 2^16):
              (key transform, copies, device sorts, host merge); and one
              flagship entry traced by runtime.profiler, for the share of
              the traced window in which the card ran a kernel
+  dist       the distributed layer (sortx_torch.parallel): at world size
+             1 on NCCL, dist_sort and stable dist_sort_kv at 2^27,
+             dist_sort_padded at 2^26 + 13 and dist_scan, each bit for
+             bit the single-card op on the same tensor; then 2 and 4
+             processes sharing the card over gloo (spawned after the
+             kernels are built, so they only load them), 2^26 keys in
+             all and a ragged 2^26 + 13: dist_sort with the merge tree
+             and with the ring, stable dist_sort_kv with int32 and with
+             int64 values, and dist_scan, the gathered shards held
+             against the single-card op of the whole input, every rank's
+             K1-K4 launches and the branches it took (its witnesses and
+             the launcher's step rows), the time of the whole call and
+             of each step (not a scaling figure: the ranks share one
+             card)
 
 Every result is checked against torch (torch.sort, torch.cumsum,
 torch.bincount, torch.topk, torch.unique) or numpy on the same input. Each path runs
@@ -47,9 +61,8 @@ each path beside its torch counterpart, and each kernel beside its
 plain version, its bound (the larger of its bytes over the card's memory
 rate and its operations over the card's integer rate) and, where one
 PyTorch call computes the same function, that call, with CUDA events
-(the scan, the histogram and their library calls over 10 calls in a
-row). Every check raises on failure: the
-exit code is 0 only if all passed. The last line is a JSON object
+(K4-K7 and the library calls over 10 calls in a row). Every check
+raises on failure: the exit code is 0 only if all passed. The last line is a JSON object
 naming the device. Without a CUDA device it exits non-zero before
 printing any result.
 """
@@ -169,7 +182,7 @@ def time_ms(run, setup=None, reps: int = 5, calls: int = 1) -> list:
     return times
 
 
-ROW = 10    # calls in a row per timing of K4, K5 and their library calls
+ROW = 10    # calls in a row per timing of K4-K7 and the library calls
 
 
 def words(rng, n: int, dev) -> torch.Tensor:
@@ -1382,11 +1395,12 @@ def block_size_ab(card: str, keys, values) -> None:
 
 
 def timed_kernel(card: str, what: str, run, plain, err: dict, name: str,
-                 setup=None):
-    """Time a kernel's wrapper and its plain version on the same inputs
-    (setup, untimed, restores them for an in-place run), and hold the
-    timed outputs equal. Returns (kernel ms, plain ms)."""
-    k_ms = time_ms(run, setup)
+                 setup=None, calls: int = 1):
+    """Time a kernel's wrapper (over ``calls`` calls in a row) and its
+    plain version on the same inputs (setup, untimed, restores them for
+    an in-place run), and hold the timed outputs equal. Returns (kernel
+    ms, plain ms)."""
+    k_ms = time_ms(run, setup, calls=calls)
     got = [g.clone() for g in _outputs(setup, run)]
     p_ms = time_ms(plain, setup, reps=1)
     want = _outputs(setup, plain)
@@ -1518,11 +1532,11 @@ def slice2_timings(dev, card: str, err: dict):
     flat = (tiles[0].reshape(-1),)
     ms["run_mover"] = timed_kernel(
         card, f"run_mover: the hybrid's partition n={N}, 1 stream, "
-        f"{rs.shape[0]} runs into {B} x {cap}",
+        f"{rs.shape[0]} runs into {B} x {cap}, {ROW} calls in a row",
         lambda: move_runs(flat, rs, rd, rl, B * cap, fills=(-1,),
                           chunk=chunk),
         lambda: move_runs_plain(flat, rs, rd, rl, B * cap, (-1,)), err,
-        "run_mover")
+        "run_mover", calls=ROW)
     # K6 reads the words its runs hold and its three run tables, and
     # writes the whole B x cap destination, fills included
     extra["run_mover"] = dict(
@@ -1532,10 +1546,10 @@ def slice2_timings(dev, card: str, err: dict):
     src, plan, _ = radix_plan(rng, dev)
     ms["piece_mover"] = timed_kernel(
         card, f"piece_mover: radix-16 plan n={N}, "
-        f"{len(plan['piece_src'])} pieces",
+        f"{len(plan['piece_src'])} pieces, {ROW} calls in a row",
         lambda: apply_runs(src, plan, N), lambda: apply_runs_plain(src, plan,
                                                                    N),
-        err, "piece_mover")
+        err, "piece_mover", calls=ROW)
     extra["piece_mover"] = dict(
         bound(2 * 4 * N + 3 * 4 * len(plan["piece_src"]), 0), library_ms=None)
     del src
@@ -1905,6 +1919,269 @@ def idle_share(dev, card: str) -> None:
           flush=True)
 
 
+# --- the distributed layer ----------------------------------------------
+
+DIST_N = 1 << 26       # the D > 1 runs' global keys: 2^25 / 2^24 a rank
+DIST_RAGGED = (1 << 26) + 13
+DIST_SEED = SEED + 31
+# Calls of each case a rank makes: the first counts the launches and saves
+# the outputs, the next WHOLE time the whole call, the rest time each
+# step (profiled at level "step", which synchronises at the steps' ends).
+DIST_REPS = 5
+WHOLE = 2
+SHARED = "processes sharing one card; not a scaling figure"
+TREE = (["ragged", "bitonic", "tree"], "merge tree")
+DIST_BRANCH = {       # case -> (witness, the step that must have run)
+    "sort tree": TREE, "sort_kv": TREE, "sort_kv i64": TREE,
+    "sort ragged": TREE,
+    "sort ring": (["ring", "bitonic", "ring"], "exchange + merge ring"),
+}
+SKEW = ("merge sort (tree skew)", "merge sort (ring skew)")
+
+
+def dist_same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(iv(a), iv(b))
+
+
+def dist_one_rank(dev, card: str) -> dict:
+    """World size 1 on NCCL (init_multihost with no environment) at 2^27:
+    dist_sort (u32), stable dist_sort_kv, dist_sort_padded at 2^26 + 13
+    and dist_scan, each bit for bit the single-card op on the same
+    tensor; the single-card results are taken first, so the counted
+    launches are the distributed calls' own."""
+    import torch.distributed as dist
+
+    from sortx_torch.parallel import init_multihost
+
+    init_multihost()
+    try:
+        mesh = sortx_torch.make_sort_mesh()
+        check(dist.get_backend() == "nccl" and mesh.size() == 1
+              and mesh.device_type == "cuda",
+              "init_multihost(): a one-rank NCCL group, a 1-rank cuda mesh")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+        keys = cwords(gen, N, dev).view(torch.uint32)
+        values = torch.arange(N, dtype=torch.int32, device=dev)
+        rk = keys[:RAGGED]
+        want = sortx_torch.sort(keys)
+        wks, wvs = sortx_torch.sort_kv(keys, values)
+        wr = sortx_torch.sort(rk)
+        ws, wt = sortx_torch.scan(keys, with_total=True)
+        torch.cuda.synchronize()
+        _build.launches.clear()
+        out = sortx_torch.dist_sort(keys, mesh=mesh)
+        check(dist_same(out, want), f"dist_sort u32 n={N}, world size 1 "
+              "(NCCL) == sortx_torch.sort")
+        ks, vs = sortx_torch.dist_sort_kv(keys, values, mesh=mesh)
+        check(dist_same(ks, wks) and dist_same(vs, wvs),
+              f"stable dist_sort_kv n={N}, world size 1 == sort_kv")
+        out, pad = sortx_torch.dist_sort_padded(rk, mesh=mesh)
+        check(pad == 0 and dist_same(out, wr), f"dist_sort_padded "
+              f"n={RAGGED}, world size 1 == sort, pad 0")
+        s, t = sortx_torch.dist_scan(keys, with_total=True, mesh=mesh)
+        check(dist_same(s, ws) and dist_same(t, wt),
+              f"dist_scan n={N}, world size 1 == scan, the same total")
+        del out, ks, vs, s
+        counts = read_launches("distributed, world size 1",
+                               NETWORK + ("scan",))
+        for what, dist_fn, one in (
+                ("sort u32", lambda: sortx_torch.dist_sort(keys, mesh=mesh),
+                 lambda: sortx_torch.sort(keys)),
+                ("scan", lambda: sortx_torch.dist_scan(keys, mesh=mesh),
+                 lambda: sortx_torch.scan(keys))):
+            time_line(card, f"dist {what} n={N}, world size 1 (NCCL)",
+                      time_ms(dist_fn), N)
+            time_line(card, f"sortx_torch.{what.split()[0]} n={N} (the same "
+                      "tensor)", time_ms(one), N)
+    finally:
+        dist.destroy_process_group()
+    return counts
+
+
+def dist_values64(dev) -> torch.Tensor:
+    """int64 values whose two words both differ from element to element."""
+    i = torch.arange(DIST_N, dtype=torch.int64, device=dev)
+    return (i << 32) | (i ^ 0x5A5A5A5A)
+
+
+def dist_cases(mesh, keys, rkeys):
+    """(name, call) of each D > 1 case, on this rank's shards."""
+    values = sortx_torch.parallel.shard_1d(torch.arange(
+        DIST_N, dtype=torch.int32, device=keys.device), mesh).clone()
+    values64 = sortx_torch.parallel.shard_1d(dist_values64(keys.device),
+                                             mesh).clone()
+    ring = sortx_torch.Config(dist_exchange="ring")
+    u = keys.view(torch.uint32)
+    return (
+        ("sort tree", lambda: (sortx_torch.dist_sort(u, mesh=mesh),)),
+        ("sort ring", lambda: (sortx_torch.dist_sort(u, mesh=mesh,
+                                                     config=ring),)),
+        ("sort_kv", lambda: sortx_torch.dist_sort_kv(u, values, mesh=mesh)),
+        ("sort_kv i64", lambda: sortx_torch.dist_sort_kv(u, values64,
+                                                         mesh=mesh)),
+        ("scan", lambda: sortx_torch.dist_scan(keys, with_total=True,
+                                               mesh=mesh)),
+        ("sort ragged", lambda: (sortx_torch.dist_sort(
+            rkeys.view(torch.uint32), mesh=mesh),)))
+
+
+def dist_rank(rank: int, d: int, tmp: str) -> None:
+    """One of D ranks sharing the card over a gloo group: each case
+    DIST_REPS times (all ranks start each call together), the first with
+    its launches counted and its outputs saved for the parent, the next
+    WHOLE timed whole and unprofiled, the rest with the launcher's row
+    for each step (``dist_sort/<step>``, at level "step")."""
+    import datetime
+    import importlib
+
+    import torch.distributed as dist
+
+    from sortx_torch.runtime import toggle_profiling
+
+    ds = importlib.import_module("sortx_torch.parallel.dist_sort")
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            world_size=d, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    dev = torch.device("cuda", 0)
+    mesh = sortx_torch.make_sort_mesh()
+    gen = torch.Generator(device=dev).manual_seed(DIST_SEED)
+    keys = sortx_torch.parallel.shard_1d(cwords(gen, DIST_N, dev),
+                                         mesh).clone()
+    rkeys = sortx_torch.parallel.shard_1d(cwords(gen, DIST_RAGGED, dev),
+                                          mesh).clone()
+    csv = f"{tmp}/profile.{rank}.csv"
+    report = {"mesh": mesh.device_type, "backend": dist.get_backend()}
+    for case, call in dist_cases(mesh, keys, rkeys):
+        steps = collections.defaultdict(list)
+        totals = []
+        for rep in range(DIST_REPS):
+            profile = rep > WHOLE
+            if profile:
+                if os.path.exists(csv):
+                    os.remove(csv)
+                toggle_profiling(True, csv, level="step")
+            dist.barrier()
+            torch.cuda.synchronize()
+            _build.launches.clear()
+            t = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            if profile:
+                toggle_profiling(False, level="op")
+                with open(csv) as f:
+                    for row in f:
+                        name, step_ms = row.split(",")[:2]
+                        if name.startswith("dist_sort/"):
+                            steps[name[len("dist_sort/"):]].append(
+                                float(step_ms))
+            elif rep:
+                totals.append(ms)
+            if rep == 0:
+                launches = dict(_build.launches)
+                for i, o in enumerate(out):
+                    np.save(f"{tmp}/{case}.{rank}.{i}.npy",
+                            iv(o).cpu().numpy())
+            del out
+        torch.cuda.empty_cache()    # D ranks and the parent share the card
+        report[case] = {"launches": launches, "total_ms": totals,
+                        "steps": dict(steps),
+                        "witness": [ds.last_exchange, ds.last_local_engine,
+                                    ds.last_local_merge]}
+    with open(f"{tmp}/report.{rank}.json", "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+
+
+def dist_ranks(dev, card: str, d: int, wants: dict) -> dict:
+    """D ranks on the one card (spawned; the kernels are built already, so
+    they only load them), held against the single-card ops of the whole
+    input; returns the ranks' summed launches."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        mp.spawn(dist_rank, args=(d, tmp), nprocs=d, join=True)
+        print(f"dist D={d}: ranks spawned, ran and exited in "
+              f"{time.perf_counter() - t:.1f} s")
+        reports = []
+        for r in range(d):
+            with open(f"{tmp}/report.{r}.json") as f:
+                reports.append(json.load(f))
+        check(all(x["mesh"] == "cuda" and x["backend"] == "gloo"
+                  for x in reports), f"D={d}: every rank on a cuda mesh over "
+              "a gloo group")
+        total = collections.Counter()
+        for case, want in wants.items():
+            ok = True
+            for i, w in enumerate(want):
+                parts = [torch.from_numpy(np.load(f"{tmp}/{case}.{r}.{i}.npy")
+                                          ).to(dev) for r in range(d)]
+                if w.dim():     # shards, joined in rank order
+                    ok &= dist_same(torch.cat(parts), w)
+                else:           # a total, the same on every rank
+                    ok &= all(dist_same(p, w) for p in parts)
+                del parts
+            check(ok, f"dist {case} D={d} ranks, n={want[0].shape[0]}: the "
+                  "gathered shards == the single-card op of the whole input")
+            need = ("scan",) if case == "scan" else NETWORK
+            for r, x in enumerate(reports):
+                c = x[case]["launches"]
+                check(all(c.get(k, 0) > 0 for k in need),
+                      f"dist {case} D={d} rank {r} launched "
+                      f"{', '.join(need)}: {c}; witness {x[case]['witness']}")
+                total.update(c)
+                if case in DIST_BRANCH:
+                    witness, step = DIST_BRANCH[case]
+                    ran = set(x[case]["steps"])
+                    check(x[case]["witness"] == witness and step in ran
+                          and not ran & set(SKEW),
+                          f"dist {case} D={d} rank {r}: witness {witness}, "
+                          f"ran {step!r} and no skew re-sort: "
+                          f"{x[case]['witness']}, {sorted(ran)}")
+            n = DIST_RAGGED if case == "sort ragged" else DIST_N
+            for name in reports[0][case]["steps"]:
+                ms = max(statistics.median(x[case]["steps"][name])
+                         for x in reports)
+                print(f"time dist {case} D={d} n={n} step (profiled): "
+                      f"{name}: {ms!r} ms "
+                      f"(the slowest rank's median; {d} {SHARED}) [{card}]",
+                      flush=True)
+            ms = max(statistics.median(x[case]["total_ms"]) for x in reports)
+            print(f"time dist {case} D={d} n={n} whole call (unprofiled): "
+                  f"{ms!r} ms = {n / (ms / 1e3):.6g}/s ({d} {SHARED}) "
+                  f"[{card}]", flush=True)
+    return total
+
+
+def dist_path(dev, card: str) -> dict:
+    """The distributed layer: world size 1 on NCCL, then D = 2 and 4 gloo
+    ranks sharing the card. Returns the launches of K1-K4 on the path
+    (the parent's and every rank's)."""
+    counts = collections.Counter(dist_one_rank(dev, card))
+    gen = torch.Generator(device=dev).manual_seed(DIST_SEED)
+    keys = cwords(gen, DIST_N, dev)
+    rkeys = cwords(gen, DIST_RAGGED, dev)
+    values = torch.arange(DIST_N, dtype=torch.int32, device=dev)
+    u = keys.view(torch.uint32)
+    sorted_u = sortx_torch.sort(u)
+    wants = {"sort tree": (sorted_u,), "sort ring": (sorted_u,),
+             "sort_kv": sortx_torch.sort_kv(u, values),
+             "sort_kv i64": sortx_torch.sort_kv(u, dist_values64(dev)),
+             "scan": sortx_torch.scan(keys, with_total=True),
+             "sort ragged": (sortx_torch.sort(rkeys.view(torch.uint32)),)}
+    del keys, rkeys, values, u
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()    # the ranks share the card with this process
+    for d in (2, 4):
+        counts.update(dist_ranks(dev, card, d, wants))
+    return counts
+
+
 def main() -> None:
     t0 = lap = time.perf_counter()
 
@@ -1948,6 +2225,10 @@ def main() -> None:
     out_of_core_checks(dev, card)
     idle_share(dev, card)
     took("runtime and out-of-core path")
+    for name, c in dist_path(dev, card).items():
+        if name in NETWORK + ("scan",):
+            counts[name] += c
+    took("distributed path")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": counts[name],
                 "max_abs_err": err[name], "ms": ms[name][0],

@@ -33,6 +33,10 @@ Layer map:
   kernels                          csrc/bitonic.cu (K1-K3), csrc/scan.cu
                                    (K4), csrc/histogram.cu (K5),
                                    csrc/shuffle.cu (K6, K7)
+  dist_sort / dist_sort_kv / *_padded / dist_scan / make_sort_mesh
+                                   parallel/ (one process per rank on
+                                   torch.distributed; the local sorts,
+                                   merges and scans on the ops above)
   host library (merge, oracle)     csrc/host_sort.cpp
   golden oracle (numpy)            reference.py
   config, default_config           config.py
@@ -47,6 +51,10 @@ from .ops import (argsort, histogram, is_sorted, kth_value, lexsort, median,
                   searchsorted, sort, sort_kv, sort_kv_large, sort_kv_rows,
                   sort_kv_segments, sort_kv_u64, sort_large, sort_rows,
                   sort_segments, sort_u64, sum_by_key, top_k, unique)
+from .parallel import (dist_scan, dist_sort, dist_sort_kv,
+                       dist_sort_kv_padded, dist_sort_padded,
+                       make_sort_mesh)
+from . import parallel
 from . import reference
 from . import runtime
 from . import utils
@@ -60,5 +68,7 @@ __all__ = ["ParallelPrimitives", "Config", "default_config",
            "scan", "scan_by_key", "scan_segments", "searchsorted", "sort",
            "sort_kv", "sort_kv_large", "sort_kv_rows", "sort_kv_segments",
            "sort_kv_u64", "sort_large", "sort_rows", "sort_segments",
-           "sort_u64", "sum_by_key", "top_k", "unique", "reference",
-           "runtime", "utils", "__version__"]
+           "sort_u64", "sum_by_key", "top_k", "unique", "dist_scan",
+           "dist_sort", "dist_sort_kv", "dist_sort_padded",
+           "dist_sort_kv_padded", "make_sort_mesh", "parallel",
+           "reference", "runtime", "utils", "__version__"]

@@ -72,4 +72,7 @@ def config_from_sortx(cfg) -> Config:
                   engine_buckets=cfg.engine_buckets,
                   engine_headroom=cfg.engine_headroom,
                   engine_chunk_elems=cfg.engine_chunk_elems,
-                  engine_phase_sort=_PHASE_SORTS[cfg.engine_phase_sort])
+                  engine_phase_sort=_PHASE_SORTS[cfg.engine_phase_sort],
+                  dist_dense_bounded=cfg.dist_dense_bounded,
+                  dist_local_merge=cfg.dist_local_merge,
+                  dist_exchange=cfg.dist_exchange)

@@ -6,9 +6,11 @@ Port of ``sortx/runtime/launcher.py`` (the reference's ``Launcher`` /
 
   - per-launch CSV profiling (``Device::toggleProfiling`` ->
     ``Profile.<device name>.csv``, one row ``name,ms,shapes`` per call):
-    every public op of the port is ``@profiled``, and at
+    every public op of the port is ``@profiled``; at ``level="step"``
+    the named steps inside an op (``profiled_step``: the distributed
+    sort's local sort, exchange, merge, ...) add a row each, and at
     ``level="kernel"`` each kernel wrapper in ``ops/`` adds one row per
-    call, from the place where it chooses between the kernel and its
+    call too, from the place where it chooses between the kernel and its
     plain version (so CPU tensors give rows too). Timing is the
     reference's recipe: synchronise the devices of the arguments, run,
     synchronise the devices of the results, host clock;
@@ -24,6 +26,7 @@ the port's case of the reference's "no rows under a user jit".
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -37,10 +40,10 @@ from ..utils.log import Channel, log
 
 __all__ = ["Launcher", "replay", "toggle_profiling", "profiling_enabled",
            "profiling_level", "profile_call", "profiled",
-           "capture_next_op", "replay_op"]
+           "profiled_step", "capture_next_op", "replay_op"]
 
 _PROFILE = {"enabled": False, "path": None, "level": "op"}
-_LEVELS = ("op", "kernel")
+_LEVELS = ("op", "step", "kernel")
 # One-shot capture of the next launch the library makes: armed by
 # capture_next_op, consumed by the first matching @profiled op (or, at
 # level="kernel", kernel wrapper).
@@ -53,8 +56,9 @@ def toggle_profiling(enable: bool, csv_path: Optional[str] = None,
 
     When enabled, every public library call (``sortx_torch.sort``,
     ``sort_kv``, ``scan``, ``sort_large``, ...) appends a CSV row
-    ``name,ms,shapes``; ``level="kernel"`` adds a row for each kernel
-    call inside them (``bitonic_block``, ``bitonic_tail``,
+    ``name,ms,shapes``; ``level="step"`` adds a row for each named step
+    inside them (``profiled_step``), ``level="kernel"`` also a row for
+    each kernel call (``bitonic_block``, ``bitonic_tail``,
     ``bitonic_global``, ``scan``, ``histogram``, ``run_mover``,
     ``piece_mover``). Each timed call synchronises the card before and
     after, so profiled runs are slower than unprofiled ones.
@@ -255,6 +259,26 @@ def profiled(name: str, level: str = "op"):
             return profile_call(name, fn, *args, _level=level, **kw)
         return wrapper
     return deco
+
+
+@contextlib.contextmanager
+def profiled_step(name: str, device: torch.device):
+    """A named step inside a library op: when profiling is on at
+    ``level="step"`` or ``"kernel"`` and no CUDA graph is being captured,
+    the block is timed as ``profile_call`` times a call (synchronise
+    ``device``, run, synchronise, host clock) and appends the row
+    ``name,ms,``."""
+    if (not _PROFILE["enabled"] or _PROFILE["level"] == "op"
+            or _capturing()):
+        yield
+        return
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    yield
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    _append_row(name, (time.perf_counter() - t0) * 1e3, "")
 
 
 def _profile_path() -> str:

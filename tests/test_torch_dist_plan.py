@@ -1,0 +1,171 @@
+"""The plan of the port's distributed sort against sortx's, in-process.
+
+The buffer bounds and layouts the exchanges and merges depend on are
+plain functions in both packages (``sortx/parallel/dist_sort.py`` and
+``sortx_torch/parallel/dist_sort.py``); they are held equal here on
+golden and random inputs, as tests/test_dist_plan.py pins the
+reference's, and the port's plan is run through a numpy model of the
+exchange. No process group is needed.
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import sortx
+import sortx_torch
+
+REF = importlib.import_module("sortx.parallel.dist_sort")
+PORT = importlib.import_module("sortx_torch.parallel.dist_sort")
+MS = (0, 1, 7, 64, 1000, 1024, 4099, 65_536, (1 << 24) + 13, 1 << 25)
+
+
+@pytest.mark.parametrize("d", range(1, 9))
+def test_buffer_bounds_match_sortx(d):
+    """_dense_cell_cap, _recv_buf_len (over the sample counts the sort
+    takes) and _tree_cell_cap, on every receive buffer they meet."""
+    for m in MS:
+        assert PORT._dense_cell_cap(m, d) == REF._dense_cell_cap(m, d)
+        for s in {0, 1, d, min(64, m), d ** 3, m} - ({0} if m else set()):
+            buf = REF._recv_buf_len(m, d, s)
+            assert PORT._recv_buf_len(m, d, s) == buf
+            assert PORT._tree_cell_cap(buf, m, d) == REF._tree_cell_cap(
+                buf, m, d)
+
+
+@pytest.mark.parametrize("d", range(1, 9))
+def test_samples_and_ring_gate_match_sortx(d):
+    """The port's sample count is the reference's inline rule
+    (dist_sort.py:1095-1103), and its ring gate and merge resolution
+    are the reference's for every config and engine."""
+    for m in MS:
+        for ragged in (True, False):
+            for bounded in (True, False):
+                s = min(max(d, min(64, m)), m)
+                if not ragged and bounded:
+                    s = min(m, max(s, d ** 3))
+                cfg = sortx_torch.Config(dist_dense_bounded=bounded,
+                                         dist_exchange="ring")
+                assert PORT._samples(m, d, ragged, cfg) == s
+                rcfg = sortx.Config(dist_exchange="ring")
+                for engine in ("bitonic", "xla"):
+                    assert PORT._use_ring(cfg, engine, d, m, s) == \
+                        REF._use_ring(rcfg, engine, d, m, s)
+    for merge in ("auto", "tree", "rank", "native", "sort"):
+        for engine in ("bitonic", "xla"):
+            # the reference's native merge runs on its CPU backend, the
+            # port's on CPU tensors
+            assert PORT._resolve_merge_mode(
+                sortx_torch.Config(dist_local_merge=merge), engine, d,
+                torch.device("cpu")) == REF._resolve_merge_mode(
+                    sortx.Config(dist_local_merge=merge), engine, d)
+
+
+def _plans(dests, d: int):
+    """Every rank's (sizes, offsets) and (send_out_off, recv_sizes), by
+    the port and by the reference."""
+    port, ref = [], []
+    for dest in dests:
+        port.append([t.numpy() for t in PORT._segment_layout(
+            torch.as_tensor(dest, dtype=torch.int64), d)])
+        ref.append([np.asarray(a) for a in REF._segment_layout(
+            jnp.asarray(dest, jnp.int32), d)])
+    c = np.stack([s for s, _ in port])
+    outs = [[t.numpy() for t in PORT._plan_from_counts(torch.as_tensor(c),
+                                                        me)]
+            for me in range(d)]
+    routs = [[np.asarray(a) for a in REF._plan_from_counts(jnp.asarray(c),
+                                                           me)]
+             for me in range(d)]
+    for a, b in zip(port + outs, ref + routs):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    return c, [o for _, o in port], outs
+
+
+def test_plan_golden_small():
+    """The hand-checked D = 2 plan of tests/test_dist_plan.py."""
+    c, offs, outs = _plans([np.array([0, 0, 0, 1]), np.array([0, 0, 1, 1])],
+                           2)
+    assert c.tolist() == [[3, 1], [2, 2]]
+    assert offs[0].tolist() == [0, 3] and offs[1].tolist() == [0, 2]
+    assert outs[0][0].tolist() == [0, 0] and outs[1][0].tolist() == [3, 1]
+    assert outs[0][1].tolist() == [3, 2] and outs[1][1].tolist() == [1, 2]
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 8])
+def test_plans_match_sortx_on_random_destinations(d):
+    """Random monotone destinations (empty segments, all-in-one skew):
+    the same layouts and count matrices."""
+    rng = np.random.RandomState(d)
+    m = int(rng.randint(1, 300))
+    dests = [np.sort(rng.randint(0, d, size=m)) for _ in range(d)]
+    if d % 3 == 0:
+        dests[rng.randint(d)] = np.full(m, rng.randint(d))
+    c, offs, outs = _plans(dests, d)
+    for me in range(d):
+        assert outs[me][1].sum() == c[:, me].sum()
+
+
+@pytest.mark.parametrize("case", ["uniform", "all_equal", "one_hot"])
+def test_port_plan_reconstructs_the_global_order(case):
+    """The port's plan run through a numpy model of the ragged exchange:
+    the received runs, sorted within each rank, are the global order,
+    and exact splitters balance the ranks (tests/test_dist_plan.py's
+    model, on the port's functions)."""
+    rng = np.random.RandomState(123)
+    d, m = 4, 64
+    keys = {"uniform": rng.randint(0, 1000, size=(d, m)),
+            "all_equal": np.full((d, m), 7),
+            "one_hot": np.full((d, m), 42)}[case]
+    if case == "one_hot":
+        keys[2, 5] = 1
+    enc = []
+    for s in range(d):
+        order = np.argsort(keys[s], kind="stable")
+        enc.append((keys[s][order].astype(np.int64) << 16) | (s << 8)
+                   | np.arange(m)[order])
+    glob = np.sort(np.concatenate(enc))
+    dests = [np.searchsorted(glob, e) // m for e in enc]
+    c, offs, outs = _plans(dests, d)
+    got = []
+    for j in range(d):
+        buf = np.full(2 * m, -1, np.int64)
+        for i in range(d):
+            n_ij = c[i, j]
+            o = outs[i][0][j]
+            buf[o:o + n_ij] = enc[i][offs[i][j]:offs[i][j] + n_ij]
+        got.extend(np.sort(buf[:c[:, j].sum()]).tolist())
+    np.testing.assert_array_equal(np.array(got), glob)
+    assert c.sum(0).tolist() == [m] * d
+
+
+def test_tree_merge_unit():
+    """_merge_runs_tree on constructed left-packed runs (one of them a
+    whole shard, one empty), as tests/test_dist.py's test_tree_merge_unit
+    runs the reference's: the stable order of the valid prefix, then
+    0xFFFFFFFF pads."""
+    rng = np.random.RandomState(123)
+    m, d = 1024, 4
+    sizes = [100, 0, 1024, 60]
+    runs = [np.sort(rng.randint(0, 50, size=s).astype(np.uint32))
+            for s in sizes]
+    buf = PORT._recv_buf_len(m, d, 64)
+    total = sum(sizes)
+    arr = np.full(buf, 0xFFFFFFFF, np.uint32)
+    arr[:total] = np.concatenate(runs)
+    pos = np.arange(buf, dtype=np.int32)
+    k = torch.from_numpy(arr.view(np.int32))
+    out_k, out_p = PORT._merge_runs_tree((k, torch.from_numpy(pos)), 2,
+                                         sizes, buf, m, d)
+    order = np.argsort(arr[:total], kind="stable")
+    np.testing.assert_array_equal(out_k.numpy().view(np.uint32)[:total],
+                                  arr[order])
+    np.testing.assert_array_equal(out_p.numpy()[:total], pos[order])
+    assert np.all(out_k.numpy()[total:] == -1)
+    ko, = PORT._merge_runs_tree((k,), 1, sizes, buf, m, d)
+    np.testing.assert_array_equal(ko.numpy().view(np.uint32)[:total],
+                                  arr[order])

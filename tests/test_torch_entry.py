@@ -117,12 +117,6 @@ def test_flagship_total_is_the_wrapped_sum():
     np.testing.assert_array_equal(to_numpy(s), np.asarray(want))
 
 
-# The reference's top-level names that belong to its distributed layer,
-# which the port does not carry yet.
-DISTRIBUTED = {"dist_scan", "dist_sort", "dist_sort_kv", "dist_sort_padded",
-               "dist_sort_kv_padded", "make_sort_mesh", "parallel"}
-
-
 def _call_shape(fn):
     """(name, kind, default) of each parameter: the signature without its
     annotations, which name torch types in the port."""
@@ -139,11 +133,11 @@ def _same_call_shape(port_fn, ref_fn):
     return got == want
 
 
-@pytest.mark.parametrize("name", sorted(set(sortx.__all__) - DISTRIBUTED))
+@pytest.mark.parametrize("name", sorted(sortx.__all__))
 def test_top_level_surface(name):
-    """Every non-distributed top-level name of sortx exists in
-    sortx_torch, with the reference's signature. ``Config`` is the one
-    exception: its fields are the port's own (sortx_torch/config.py)."""
+    """Every top-level name of sortx exists in sortx_torch, with the
+    reference's signature. ``Config`` is the one exception: its fields
+    are the port's own (sortx_torch/config.py)."""
     assert name in sortx_torch.__all__ and hasattr(sortx_torch, name)
     ref, port = getattr(sortx, name), getattr(sortx_torch, name)
     if name == "Config" or not callable(ref):
@@ -164,6 +158,21 @@ def test_runtime_surface(name):
     if inspect.isfunction(ref):
         assert _same_call_shape(port, ref), (inspect.signature(port),
                                              inspect.signature(ref))
+
+
+@pytest.mark.parametrize("name", sorted(sortx.parallel.__all__))
+def test_parallel_surface(name):
+    """sortx.parallel's names exist in sortx_torch.parallel, its functions
+    with the reference's signatures (init_multihost adds ``device``), its
+    constants equal."""
+    assert name in sortx_torch.parallel.__all__
+    ref, port = getattr(sortx.parallel, name), getattr(sortx_torch.parallel,
+                                                       name)
+    if callable(ref):
+        assert _same_call_shape(port, ref), (inspect.signature(port),
+                                             inspect.signature(ref))
+    else:
+        assert port == ref
 
 
 def test_ops_surface():

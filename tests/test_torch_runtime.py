@@ -417,6 +417,19 @@ def test_profiling_kernel_level_rows_network_passes(rng, csv):
         r.split(",")[0] for r in _rows(csv))["scan"] == 2   # op + kernel
 
 
+@pytest.mark.parametrize("level", ["op", "step", "kernel"])
+def test_profiling_step_rows_by_level(csv, level):
+    """A named step (runtime.launcher.profiled_step) adds its row at
+    level "step" and "kernel", and none at level "op"."""
+    from sortx_torch.runtime.launcher import profiled_step
+
+    toggle_profiling(True, level=level)
+    with profiled_step("op/a step", torch.device("cpu")):
+        pass
+    rows = [r.split(",")[0] for r in _rows(csv)]
+    assert rows == ([] if level == "op" else ["op/a step"])
+
+
 def test_capture_next_op_and_replay_op(tmp_path, rng):
     """The library's own ops register for capture / replay: arm a one-shot
     capture, call a plain public op, replay from the file by name."""
