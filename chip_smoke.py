@@ -24,7 +24,10 @@ u32 keys, 512 MB per stream, or 2048 rows of 2^16):
              input that takes its overflow branch
   rows       sort_rows and sort_kv_rows
   select     histogram, kth_value, median and top_k
-  movers     apply_runs on a radix-style piece plan
+  movers     apply_runs on two radix-style piece plans: a radix-16 pass
+             (256 tiles x 16 digits) from its numpy plan, and an 8-bit
+             pass (4096 tiles x 256 digits, about 65 pieces a chunk)
+             with its plan on the card
   companions 64-bit sort / sort_kv, argsort, lexsort, sort_kv of u64 keys,
              merge / merge_kv, unique, run_length_encode, reduce_by_key,
              sum_by_key, partition, sort_segments, sort_kv_segments,
@@ -440,7 +443,8 @@ def hybrid_tables(rng, dev, ns: int):
 def mover_checks(dev, err: dict) -> None:
     """K6 on the hybrid's partition and compaction tables at 2^27, with
     one, two and three streams (keys; stable KV; partial-bit KV); K7 on
-    a radix-16 piece plan at 2^27."""
+    the radix-16 and the 8-bit piece plans at 2^27, each with its plan
+    on the card."""
     rng = np.random.RandomState(SEED + 3)
     for ns in (1, 2, 3):
         tiles, (rs, rd, rl, tot), (B, cap, chunk) = hybrid_tables(
@@ -465,14 +469,33 @@ def mover_checks(dev, err: dict) -> None:
               f"{B} x {cap}) and compaction ({B} runs) at n={N}, {ns} "
               "stream(s), == plain")
         del tiles, flat, moved, want, out, out_want
-    src, plan, runs = radix_plan(rng, dev)
-    got = apply_runs(src, plan, N)
-    want = apply_runs_plain(src, plan, N)
-    torch.cuda.synchronize()
-    err["piece_mover"] = max_abs_err(got, want)
-    check(torch.equal(got, want),
-          f"piece_mover: {len(plan['piece_src'])} pieces of a radix-16 plan "
-          f"at n={N} == plain")
+    for name, (tiles, radix) in PIECE_PLANS.items():
+        src, plan, _ = radix_plan(rng, dev, tiles, radix)
+        got = apply_runs(src, plan_on_card(plan, dev), N)
+        want = apply_runs_plain(src, plan, N)
+        torch.cuda.synchronize()
+        err["piece_mover"] = max(err["piece_mover"], max_abs_err(got, want))
+        check(torch.equal(got, want),
+              f"piece_mover: {len(plan['piece_src'])} pieces of the {name} "
+              f"plan at n={N}, plan on the card, == plain")
+        del src, got, want
+
+
+# K7's two plans, (tiles, digits): one radix-16 pass (1.25 pieces a
+# chunk) and one 8-bit pass (2^20 runs of 128 words, 65 pieces a chunk)
+PIECE_PLANS = {"radix-16": (256, 16), "8-bit": (4096, 256)}
+
+
+def plan_on_card(plan: dict, dev) -> dict:
+    """A numpy piece plan as int32 tensors on the card."""
+    return {k: torch.from_numpy(v).to(dev) for k, v in plan.items()}
+
+
+def piece_mover_bound(plan: dict) -> dict:
+    """K7 reads each output word's source and writes it once, and reads
+    12 bytes a piece and 8 a chunk of plan."""
+    return bound(2 * 4 * N + 3 * 4 * len(plan["piece_src"])
+                 + 2 * 4 * len(plan["chunk_first"]), 0)
 
 
 def radix_plan(rng, dev, tiles: int = 256, radix: int = 16):
@@ -664,19 +687,29 @@ def select_path(dev) -> dict:
 
 
 def movers_path(dev) -> dict:
-    """Phase 7: apply_runs on a radix-16 piece plan at 2^27 against the
-    numpy run loop."""
+    """Phase 7: apply_runs at 2^27 on the radix-16 plan from numpy (held
+    against the numpy run loop and the plain version) and on the 8-bit
+    plan on the card (against the plain version)."""
     rng = np.random.RandomState(SEED + 7)
     src, plan, runs = radix_plan(rng, dev)
+    src8, plan8, runs8 = radix_plan(rng, dev, *PIECE_PLANS["8-bit"])
+    card8 = plan_on_card(plan8, dev)
+    torch.cuda.synchronize()
     _build.launches.clear()
     out = apply_runs(src, plan, N)
+    out8 = apply_runs(src8, card8, N)
     counts = read_launches("movers", ("piece_mover",))
     host = src.cpu().numpy()
     want = np.empty_like(host)
     for s, d, ln in zip(*runs):
         want[d:d + ln] = host[s:s + ln]
-    check(np.array_equal(out.cpu().numpy(), want),
-          f"apply_runs n={N}, {len(runs[0])} runs == the numpy run loop")
+    check(np.array_equal(out.cpu().numpy(), want)
+          and torch.equal(out, apply_runs_plain(src, plan, N)),
+          f"apply_runs n={N}, radix-16 plan ({len(runs[0])} runs) == the "
+          "numpy run loop and plain")
+    check(torch.equal(out8, apply_runs_plain(src8, plan8, N)),
+          f"apply_runs n={N}, 8-bit plan on the card ({len(runs8[0])} runs, "
+          f"{len(plan8['piece_src'])} pieces) == plain")
     return counts
 
 
@@ -1543,16 +1576,43 @@ def slice2_timings(dev, card: str, err: dict):
         bound(4 * (int(rl.sum()) + B * cap) + 3 * 4 * rs.shape[0], 0),
         library_ms=None)
     del tiles, flat
-    src, plan, _ = radix_plan(rng, dev)
-    ms["piece_mover"] = timed_kernel(
-        card, f"piece_mover: radix-16 plan n={N}, "
-        f"{len(plan['piece_src'])} pieces, {ROW} calls in a row",
-        lambda: apply_runs(src, plan, N), lambda: apply_runs_plain(src, plan,
-                                                                   N),
-        err, "piece_mover", calls=ROW)
-    extra["piece_mover"] = dict(
-        bound(2 * 4 * N + 3 * 4 * len(plan["piece_src"]), 0), library_ms=None)
-    del src
+    # K7 with its plan on the card (the kernels line: the radix-16 plan),
+    # the whole call from the numpy plan, and the yardsticks: torch.cat
+    # of the radix-16 plan's runs in destination order (K7's function
+    # where the runs tile the output) and a plain device copy
+    for name, (tiles, radix) in PIECE_PLANS.items():
+        src, plan, runs = radix_plan(rng, dev, tiles, radix)
+        card_plan = plan_on_card(plan, dev)
+        what = (f"piece_mover: {name} plan n={N}, {len(plan['piece_src'])} "
+                f"pieces, plan on the card, {ROW} calls in a row")
+        k_p = timed_kernel(card, what,
+                           lambda: apply_runs(src, card_plan, N),
+                           lambda: apply_runs_plain(src, plan, N),
+                           err, "piece_mover", calls=ROW)
+        b = piece_mover_bound(plan)
+        print(f"bound {what}: {b['bound_ms']!r} ms by {b['bound_by']}; "
+              f"share {b['bound_ms'] / k_p[0]!r}")
+        line(f"apply_runs: {name} plan n={N}, from the numpy plan (one "
+             f"upload a call), {ROW} calls in a row",
+             time_ms(lambda: apply_runs(src, plan, N), calls=ROW), N)
+        if name == "radix-16":
+            ms["piece_mover"] = k_p
+            order = np.argsort(runs[1], kind="stable")
+            views = [src[int(s):int(s) + int(ln)]
+                     for s, ln in zip(runs[0][order], runs[2][order])]
+            check(torch.equal(torch.cat(views), apply_runs(src, card_plan,
+                                                           N)),
+                  "torch.cat of the radix-16 plan's runs == apply_runs")
+            extra["piece_mover"] = dict(b, library_ms=line(
+                f"torch.cat of the {len(views)} runs of the radix-16 plan "
+                f"n={N}, {ROW} calls in a row",
+                time_ms(lambda: torch.cat(views), calls=ROW), N))
+            out = torch.empty_like(src)
+            line(f"out.copy_(src) n={N} (the card's practical copy rate), "
+                 f"{ROW} calls in a row",
+                 time_ms(lambda: out.copy_(src), calls=ROW), N)
+            del views, out
+        del src, plan, card_plan
 
     # rows mode of K1-K3 at the sort_rows and top_k shapes, 1 stream
     x0 = keys.view(1, N)

@@ -5,15 +5,17 @@ permutation: for runs (src, dst, len) with destination-sorted,
 non-overlapping destinations, ``out[dst:dst+len] = src[src:src+len]``;
 output that no run covers keeps a fill value, and reads past the end of
 a source give 0. Each CTA of the kernels (``csrc/shuffle.cu``) owns one
-output chunk and copies in the parts of the runs that land in it.
+output chunk and writes every word of it in 16-byte vectors, each of
+which finds its run by a binary search over the chunk's runs.
 
   move_runs   (K6, ``run_mover``)    N streams moved by one run table
               that stays on the device; the per-chunk run index is two
               ``searchsorted`` (:func:`chunk_run_index`); per-stream fills.
               The hybrid engine's partition and compaction.
-  apply_runs  (K7, ``piece_mover``)  one stream, zero fill, a numpy piece
-              plan from :func:`build_piece_plan` (runs cut at chunk
-              boundaries on the host).
+  apply_runs  (K7, ``piece_mover``)  one stream, zero fill, a piece plan
+              from :func:`build_piece_plan` (runs cut at chunk
+              boundaries on the host), as numpy arrays (one upload a
+              call) or as int32 tensors on the source's device (none).
 
 The TPU means do not come along: the 1024-element aligned DMA covers,
 the flat roll, DMA slots and semaphores (``slots``), the source padding
@@ -193,10 +195,29 @@ def move_runs(srcs, run_src: torch.Tensor, run_dst: torch.Tensor,
     return outs
 
 
+_PLAN_KEYS = ("piece_src", "piece_dst_off", "piece_len", "chunk_first",
+              "chunk_count")
+
+
 def _plan_tensors(plan, device):
-    return [torch.from_numpy(np.ascontiguousarray(plan[k], np.int32)).to(
-        device) for k in ("piece_src", "piece_dst_off", "piece_len",
-                          "chunk_first", "chunk_count")]
+    """The plan's five arrays as int32 tensors on ``device``. Tensors
+    already there pass through (cast if not int32); the rest are packed
+    into one int32 buffer that goes to the device in one copy (from
+    pinned memory, without a stream sync, to a card)."""
+    out, host = {}, {}
+    for key in _PLAN_KEYS:
+        v = plan[key]
+        if isinstance(v, torch.Tensor) and v.device == device:
+            out[key] = v.to(torch.int32).contiguous()
+        else:
+            v = v.cpu() if isinstance(v, torch.Tensor) else v
+            host[key] = np.asarray(v).astype(np.int32, copy=False).ravel()
+    if host:
+        buf = torch.from_numpy(np.concatenate(list(host.values())))
+        if device.type == "cuda":
+            buf = buf.pin_memory().to(device, non_blocking=True)
+        out.update(zip(host, buf.split([len(a) for a in host.values()])))
+    return [out[key] for key in _PLAN_KEYS]
 
 
 def apply_runs_plain(src: torch.Tensor, plan, out_len: int,
@@ -213,8 +234,10 @@ def apply_runs_plain(src: torch.Tensor, plan, out_len: int,
 def apply_runs(src: torch.Tensor, plan, out_len: int, *,
                chunk: int = CHUNK_ELEMS) -> torch.Tensor:
     """K7: apply a piece plan from :func:`build_piece_plan` to the 1-D
-    4-byte tensor ``src``. ``out_len`` must be a multiple of ``chunk``
-    (the plan's chunk); uncovered output is 0."""
+    4-byte tensor ``src``. The plan's arrays may be numpy arrays or
+    tensors; int32 tensors on ``src``'s device are used as they are.
+    ``out_len`` must be a multiple of ``chunk`` (the plan's chunk);
+    uncovered output is 0."""
     src = src.contiguous()
     _check_streams((src,), out_len, chunk)
     if len(plan["chunk_first"]) != out_len // chunk:

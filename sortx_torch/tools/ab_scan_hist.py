@@ -73,12 +73,14 @@ def time_ms(run, calls: int = 1) -> dict:
             "max": max(times), "calls_per_timing": calls}
 
 
-def ptxas(where: str) -> None:
+def ptxas(where: str, names=("scan.cu", "histogram.cu")) -> None:
+    """Registers, spills and SASS counts of the kernels in the sources
+    ``names`` of csrc/; raises on a spill."""
     nvcc = _build.nvcc_path()
     keys = ("BAR.SYNC", "VOTE", "MATCH", "SHFL", "ATOMS", "LDG.E.128",
             "STG.E.128")
     for src in _build.SOURCES:
-        if src.name not in ("scan.cu", "histogram.cu"):
+        if src.name not in names:
             continue
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()

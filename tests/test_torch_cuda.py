@@ -223,6 +223,125 @@ def test_apply_runs_matches_plain(dev):
     assert torch.equal(got.cpu(), apply_runs_plain(src, plan, n))
 
 
+def _edge_runs(seed, kind, out_len, src_len):
+    """Destination-sorted runs in [0, out_len) of one kind: "tiny" (1-3
+    words, short gaps: thousands of pieces a chunk), "mixed" (0 to 3000
+    words), "single" (one run over all of out_len) or "gappy" (long
+    gaps); sources start anywhere in [-8, src_len + 8), so some reads
+    fall outside the source."""
+    if kind == "single":
+        return [0], [0], [out_len]
+    rng = np.random.RandomState(seed)
+    lengths, gap = {"tiny": ([1, 2, 3], 2), "mixed": ([0, 1, 5, 37, 700, 3000],
+                                                      40),
+                    "gappy": ([1, 4, 300], 900)}[kind]
+    src, dst, ln, pos = [], [], [], 0
+    while True:
+        pos += int(rng.randint(0, gap + 1))
+        length = int(rng.choice(lengths))
+        if pos + length > out_len:
+            return src, dst, ln
+        src.append(int(rng.randint(-8, src_len + 9)))
+        dst.append(pos)
+        ln.append(length)
+        pos += length
+
+
+def _on_card(plan, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in plan.items()}
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 1000, 4096, 4097, 8192, 1 << 16])
+@pytest.mark.parametrize("kind", ["tiny", "mixed", "single", "gappy"])
+def test_apply_runs_edges_match_plain(dev, chunk, kind):
+    """Every kind of chunk (off the 16-byte grid too), pieces of 1-3
+    words, thousands of pieces in a chunk, one run over everything,
+    gaps, reads past either end, a source whose length is not a multiple
+    of 4, and the plan as numpy and as CUDA tensors."""
+    out_len = chunk * -(-20_000 // chunk)
+    src_len = out_len // 2 + 4 * 1001 + 3
+    src = _words(chunk + len(kind), src_len, dup=False)
+    plan = build_piece_plan(*_edge_runs(chunk, kind, out_len, src_len),
+                            out_len, chunk)
+    want = apply_runs_plain(src, plan, out_len, chunk)
+    for p in (plan, _on_card(plan, dev)):
+        got = apply_runs(src.to(dev), p, out_len, chunk=chunk)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("view", [0, 1, 2, 3])
+def test_apply_runs_every_residue(dev, view):
+    """Pieces whose source and destination differ by every residue mod
+    4, on a source view 0-3 words off the 16-byte grid: the 16-byte
+    loads, the word loads and the edges of each."""
+    chunk, out_len = 2048, 4 * 2048
+    src, dst, ln, pos = [], [], [], 0
+    for r in range(64):
+        length = (5, 64, 515, 1, 2, 3, 4, 17)[r % 8]
+        pos += r % 3
+        if pos + length > out_len:
+            break
+        src.append(pos + r % 4 + 8 * (r % 5))
+        dst.append(pos)
+        ln.append(length)
+        pos += length
+    base = _words(10 + view, out_len + 64, dup=False)
+    plan = build_piece_plan(src, dst, ln, out_len, chunk)
+    want = apply_runs_plain(base[view:], plan, out_len, chunk)
+    got = apply_runs(base.to(dev)[view:], _on_card(plan, dev), out_len,
+                     chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+def test_apply_runs_thousands_of_pieces_and_empty_ones(dev):
+    """A hand-made plan: 5000 one- and two-word pieces in one chunk
+    (several batches of the kernel's shared memory), with empty pieces
+    among them: at batches' edges, and one that begins inside the piece
+    before it, which ends a batch."""
+    chunk = 16384
+    rng = np.random.RandomState(11)
+    lens = rng.randint(0, 3, size=5000)
+    lens[[0, 1024, 1025, 2047, 2048, 4999]] = 0
+    lens[1023] = 2
+    gaps = rng.randint(0, 2, size=5000)
+    dst = np.cumsum(gaps + lens) - lens
+    dst[1024] = dst[1023] + 1
+    plan = {"piece_src": rng.randint(0, 9000, size=5000).astype(np.int32),
+            "piece_dst_off": dst.astype(np.int32),
+            "piece_len": lens.astype(np.int32),
+            "chunk_first": np.array([0, 5000], np.int32),
+            "chunk_count": np.array([5000, 0], np.int32)}
+    src = _words(12, 9001, dup=False)
+    want = apply_runs_plain(src, plan, 2 * chunk, chunk)
+    got = apply_runs(src.to(dev), _on_card(plan, dev), 2 * chunk,
+                     chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("ns", [1, 2, 3, 4])
+@pytest.mark.parametrize("chunk", [1, 1000, 4097, 16384])
+def test_move_runs_edges_match_plain(dev, ns, chunk):
+    """K6 on the same edges: tiny, long and empty runs, thousands in a
+    chunk, fills, and source views off the 16-byte grid."""
+    out_len = chunk * -(-20_000 // chunk)
+    n = 12_003
+    runs = [torch.tensor(a, dtype=torch.int32) for a in _edge_runs(
+        ns + chunk, "tiny" if chunk > 1000 else "mixed", out_len, n)]
+    base = [_words(20 + t, n + 3, dup=False) for t in range(ns)]
+    srcs = [b[t:t + n] for t, b in enumerate(base)]
+    fills = [0xFFFFFFFF, 0, 5, 0x80000000][:ns]
+    got = move_runs([b.to(dev)[t:t + n] for t, b in enumerate(base)],
+                    *(r.to(dev) for r in runs), out_len, fills=fills,
+                    chunk=chunk)
+    want = move_runs_plain(srcs, *runs, out_len, fills)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
 # --- the hybrid engine and the order statistics ---------------------------
 
 @pytest.mark.parametrize("kv", [False, True])

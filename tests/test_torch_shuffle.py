@@ -5,7 +5,8 @@ The JAX side runs its Pallas movers (``move_runs``, K6, and
 ``tests/test_shuffle.py``: gaps, zero-length runs, two streams, fills,
 radix-style partitions. The port's side runs on CPU tensors, where the
 wrappers run their plain versions. The piece plan is numpy on both
-sides and must agree array for array.
+sides and must agree array for array; ``apply_runs`` also takes it as
+tensors (as the reference takes ``jnp`` arrays).
 """
 
 import jax.numpy as jnp
@@ -108,35 +109,106 @@ def _ragged_runs(rng, n, cuts):
 
 
 def _plans(rng, name):
-    n = 4 * tsh.CHUNK_ELEMS
+    """(src, runs, out_len, chunk) of a named case."""
+    chunk = tsh.CHUNK_ELEMS
+    n = 4 * chunk
     if name == "swap":
-        return np.arange(2 * tsh.CHUNK_ELEMS, dtype=np.uint32), (
-            [0, tsh.CHUNK_ELEMS], [tsh.CHUNK_ELEMS, 0],
-            [tsh.CHUNK_ELEMS] * 2), 2 * tsh.CHUNK_ELEMS
+        return np.arange(2 * chunk, dtype=np.uint32), (
+            [0, chunk], [chunk, 0], [chunk] * 2), 2 * chunk, chunk
     if name == "ragged":
         src = rng.randint(0, 2**32, size=n, dtype=np.uint32)
-        return src, _ragged_runs(rng, n, 37), n
+        return src, _ragged_runs(rng, n, 37), n, chunk
     if name == "single":
         src = rng.randint(0, 2**32, size=n, dtype=np.uint32)
-        return src, ([0], [0], [n]), n
-    n = 8 * tsh.CHUNK_ELEMS
+        return src, ([0], [0], [n]), n, chunk
+    if name == "8-bit":   # one 8-bit digit pass: runs of ~2 words, and empty
+        n = 4 * 2048
+        src, starts, dsts, lens, _ = _radix_run_set(rng, n, 16, 256)
+        return src, (starts, dsts, lens), n, 2048
+    n = 8 * chunk
     src, starts, dsts, lens, _ = _radix_run_set(rng, n, 4, 16)
-    return src, (starts, dsts, lens), n
+    return src, (starts, dsts, lens), n, chunk
 
 
-@pytest.mark.parametrize("name", ["swap", "ragged", "single", "radix"])
+@pytest.mark.parametrize("name", ["swap", "ragged", "single", "radix",
+                                  "8-bit"])
 def test_apply_runs_matches_jax(rng, name):
-    src, runs, n = _plans(rng, name)
-    want_plan = jsh.build_piece_plan(*runs, n)
-    plan = tsh.build_piece_plan(*runs, n)
+    src, runs, n, chunk = _plans(rng, name)
+    want_plan = jsh.build_piece_plan(*runs, n, chunk)
+    plan = tsh.build_piece_plan(*runs, n, chunk)
     assert plan.keys() == want_plan.keys()
     for key in plan:
         assert plan[key].dtype == np.int32
         np.testing.assert_array_equal(plan[key], want_plan[key])
-    want = jsh.apply_runs(jnp.asarray(src), want_plan, n, interpret=True)
-    got = tsh.apply_runs(to_torch(src), plan, n)
+    want = jsh.apply_runs(jnp.asarray(src), want_plan, n, chunk=chunk,
+                          interpret=True)
+    got = tsh.apply_runs(to_torch(src), plan, n, chunk=chunk)
     _check([got], [want])
     np.testing.assert_array_equal(to_numpy(got), _numpy_apply(src, *runs, n))
+
+
+@pytest.mark.parametrize("name", ["ragged", "radix", "8-bit"])
+def test_apply_runs_takes_a_plan_of_tensors(rng, name):
+    """The plan as int32 tensors on the source's device, as the
+    reference takes it as jnp arrays."""
+    src, runs, n, chunk = _plans(rng, name)
+    plan = tsh.build_piece_plan(*runs, n, chunk)
+    want = jsh.apply_runs(jnp.asarray(src),
+                          {k: jnp.asarray(v) for k, v in plan.items()}, n,
+                          chunk=chunk, interpret=True)
+    got = tsh.apply_runs(to_torch(src),
+                         {k: torch.from_numpy(v) for k, v in plan.items()},
+                         n, chunk=chunk)
+    _check([got], [want])
+    plain = tsh.apply_runs_plain(
+        to_torch(src), {k: torch.from_numpy(v) for k, v in plan.items()}, n,
+        chunk)
+    _check([plain], [want])
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 1000, 4097])
+def test_apply_runs_any_chunk_matches_the_run_loop(rng, chunk):
+    """Chunks off the reference's 128-lane grid, which the port takes:
+    gaps stay 0, and so do reads past the source's end."""
+    out_len = chunk * -(-6000 // chunk)
+    src = rng.randint(1, 2**32, size=3001, dtype=np.uint32)
+    starts, dsts, lens, pos = [], [], [], 0
+    while True:
+        pos += int(rng.randint(0, 50))
+        ln = int(rng.choice([1, 2, 3, 40, 900]))
+        if pos + ln > out_len:
+            break
+        starts.append(int(rng.randint(0, 3001)))
+        dsts.append(pos)
+        lens.append(ln)
+        pos += ln
+    plan = tsh.build_piece_plan(starts, dsts, lens, out_len, chunk)
+    got = to_numpy(tsh.apply_runs(to_torch(src), plan, out_len, chunk=chunk))
+    padded = np.concatenate([src, np.zeros(900, np.uint32)])
+    want = np.zeros(out_len, np.uint32)
+    for s, d, ln in zip(starts, dsts, lens):
+        want[d:d + ln] = padded[s:s + ln]
+    np.testing.assert_array_equal(got, want)
+
+
+def test_plan_tensors_pass_through_or_upload_once(rng):
+    """int32 tensors on the device are used as they are; a numpy plan (or
+    tensors elsewhere, or of another dtype) becomes slices of one
+    buffer, so it costs one copy to the device."""
+    src, runs, n, chunk = _plans(rng, "ragged")
+    plan = tsh.build_piece_plan(*runs, n, chunk)
+    tensors = {k: torch.from_numpy(v) for k, v in plan.items()}
+    got = tsh._plan_tensors(tensors, torch.device("cpu"))
+    assert [t.data_ptr() for t in got] == [
+        tensors[k].data_ptr() for k in tsh._PLAN_KEYS]
+    for mixed in (plan, dict(tensors, piece_len=plan["piece_len"]
+                             .astype(np.int64))):
+        got = tsh._plan_tensors(mixed, torch.device("cpu"))
+        for key, t in zip(tsh._PLAN_KEYS, got):
+            assert t.dtype == torch.int32
+            np.testing.assert_array_equal(t.numpy(), plan[key])
+    got = tsh._plan_tensors(plan, torch.device("cpu"))
+    assert len({t.untyped_storage().data_ptr() for t in got}) == 1
 
 
 def test_apply_runs_gaps_are_zero(rng):
