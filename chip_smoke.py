@@ -55,6 +55,24 @@ u32 keys, 512 MB per stream, or 2048 rows of 2^16):
              the launcher's step rows), the time of the whole call and
              of each step (not a scaling figure: the ranks share one
              card)
+  dist cards where two or more cards are visible (else one "skipped"
+             line): D = min(cards, 4) spawned ranks, one a card, each
+             started as torchrun starts one and calling init_multihost()
+             with no arguments (NCCL, on card LOCAL_RANK); at 2^27 keys a
+             rank dist_sort with the merge tree and with the ring, stable
+             dist_sort_kv with int32 and int64 values, dist_sort_padded
+             and dist_sort_kv_padded of D * 2^27 + 13 keys and dist_scan
+             with its total; at 2^22 a rank the dense exchange bounded
+             and full, the merges "rank", "native" and "sort", presorted
+             keys that take the tree's and the ring's skew re-sort,
+             all-equal keys, descending, sort_bits=12, n < D and n = 0.
+             Each rank makes the whole global array from the seed on its
+             own card, runs the single-card op on it and holds its shard
+             bit for bit against its slice; the parent checks every
+             rank's backend, card, outputs' card, launches, witnesses and
+             steps, and prints the times of the whole call, of each step
+             and of the single-card op on the whole array and on one
+             rank's shard
 
 Every result is checked against torch (torch.sort, torch.cumsum,
 torch.bincount, torch.topk, torch.unique) or numpy on the same input. Each path runs
@@ -1571,11 +1589,27 @@ def slice2_timings(dev, card: str, err: dict):
         lambda: move_runs_plain(flat, rs, rd, rl, B * cap, (-1,)), err,
         "run_mover", calls=ROW)
     # K6 reads the words its runs hold and its three run tables, and
-    # writes the whole B x cap destination, fills included
+    # writes the whole B x cap destination, fills included. One PyTorch
+    # call computes the same: torch.cat of the runs and of the fill gaps
+    # between them (views of one filled tensor), in destination order.
+    views, at, fill = [], 0, torch.full((B * cap,), -1, dtype=torch.int32,
+                                         device=dev)
+    for s0, d0, ln in sorted(zip(rs.tolist(), rd.tolist(), rl.tolist()),
+                             key=lambda r: r[1]):
+        views += [fill[:d0 - at], flat[0][s0:s0 + ln]]
+        at = d0 + ln
+    views.append(fill[:B * cap - at])
+    check(torch.equal(torch.cat(views), move_runs(
+        flat, rs, rd, rl, B * cap, fills=(-1,), chunk=chunk)[0]),
+          "torch.cat of the hybrid partition's runs and fill gaps == "
+          "move_runs")
     extra["run_mover"] = dict(
         bound(4 * (int(rl.sum()) + B * cap) + 3 * 4 * rs.shape[0], 0),
-        library_ms=None)
-    del tiles, flat
+        library_ms=line(f"torch.cat of the {rs.shape[0]} runs and their "
+                        f"fill gaps (the hybrid's partition) n={N}, {ROW} "
+                        "calls in a row",
+                        time_ms(lambda: torch.cat(views), calls=ROW), N))
+    del tiles, flat, views, fill
     # K7 with its plan on the card (the kernels line: the radix-16 plan),
     # the whole call from the numpy plan, and the yardsticks: torch.cat
     # of the radix-16 plan's runs in destination order (K7's function
@@ -2058,9 +2092,9 @@ def dist_one_rank(dev, card: str) -> dict:
     return counts
 
 
-def dist_values64(dev) -> torch.Tensor:
+def dist_values64(dev, n: int = DIST_N) -> torch.Tensor:
     """int64 values whose two words both differ from element to element."""
-    i = torch.arange(DIST_N, dtype=torch.int64, device=dev)
+    i = torch.arange(n, dtype=torch.int64, device=dev)
     return (i << 32) | (i ^ 0x5A5A5A5A)
 
 
@@ -2242,6 +2276,370 @@ def dist_path(dev, card: str) -> dict:
     return counts
 
 
+# --- the distributed layer across cards: one rank per card over NCCL ------
+
+CARD_KEYS = 1 << 27     # keys a rank in the full-size cases (2^29 at D = 4)
+CARD_BRANCH = 1 << 22   # keys a rank in the other branches' cases
+CARD_SEED = SEED + 41
+CARD_REPS = 5           # unprofiled whole calls a full-size case times
+CARD_STEP_REPS = 2      # profiled calls it reads its steps from
+# case -> (witness, the step that must have run) at D = 4; the tree's
+# and the ring's cases must also have taken no skew re-sort
+CARD_BRANCH_OF = {
+    "sort tree": TREE, "sort ring": DIST_BRANCH["sort ring"],
+    "sort_kv i32": TREE, "sort_kv i64": TREE, "sort padded": TREE,
+    "sort_kv padded": TREE,
+    "dense bounded": (["dense", "bitonic", "tree"], "exchange dense bounded"),
+    "dense full": (["dense", "bitonic", "tree"], "exchange dense full"),
+    "merge rank": (["ragged", "bitonic", "rank"], "merge rank"),
+    # "native" is the host library's merge of CPU tensors; on the card it
+    # resolves to the re-sort, as the reference's does off its CPU backend
+    "merge native": (["ragged", "bitonic", "sort"], "merge sort"),
+    "merge sort": (["ragged", "bitonic", "sort"], "merge sort"),
+    "skew tree": (["ragged", "bitonic", "tree"], SKEW[0]),
+    "skew ring": (["ring", "bitonic", "ring"], SKEW[1]),
+    "all equal": TREE, "descending": TREE, "partial bits": TREE,
+    "n < D": TREE}
+
+
+def card_branches(d: int) -> dict:
+    """CARD_BRANCH_OF as it holds at D = d: at D = 2 a bounded cell is a
+    whole shard (so the cells are full) and a run never outgrows its
+    block (so no skew re-sort); at D = 3 neither the tree nor the ring
+    runs, and nothing is held."""
+    if d == 2:
+        return {**CARD_BRANCH_OF, "skew tree": TREE,
+                "skew ring": DIST_BRANCH["sort ring"],
+                "dense bounded": CARD_BRANCH_OF["dense full"]}
+    return CARD_BRANCH_OF if d == 4 else {}
+
+
+def card_digest(t: torch.Tensor) -> int:
+    """A 64-bit digest of a tensor's 32-bit words: the sum, mod 2^64, of
+    each word times an odd hash of its index (in chunks, on its device)."""
+    w = iv(t.contiguous()).view(torch.int32).reshape(-1)
+    total = 0
+    for at in range(0, w.shape[0], 1 << 26):
+        part = w[at:at + (1 << 26)].to(torch.int64) & 0xFFFFFFFF
+        idx = torch.arange(at, at + part.shape[0], device=w.device)
+        total += int(((idx * -7046029254386353131) | 1).mul_(part).sum())
+    return total & (2**64 - 1)
+
+
+def card_inputs(kind: str, n: int, dev, names) -> list:
+    """The global arrays ``names`` of a case, made on this rank's card
+    from the seed, the same on every card: "keys" (u32: uniform,
+    duplicate-heavy, presorted or all equal), "scan" (the same words as
+    int32), "v32" and "v64" (int32 and int64 values)."""
+    gen = torch.Generator(device=dev).manual_seed(CARD_SEED)
+    k = cwords(gen, n, dev)
+    if kind == "dups":
+        k &= 0x3F
+    elif kind == "presorted":
+        k = sortx_torch.sort(k.view(torch.uint32)).view(torch.int32)
+    elif kind == "equal":
+        k.fill_(0x2BCD1234)
+    make = {"keys": lambda: k.view(torch.uint32), "scan": lambda: k,
+            "v32": lambda: torch.arange(n, dtype=torch.int32, device=dev),
+            "v64": lambda: dist_values64(dev, n)}
+    return [make[name]() for name in names]
+
+
+def card_padded(out, n: int, d: int) -> tuple:
+    """The single-card sort's outputs as the padded sorts return them
+    across d ranks: keys then 0xFFFFFFFF pads, values then zeros, and the
+    pad count."""
+    m = -(-n // d)
+    pad = d * m - n
+    fills = (-1,) + (0,) * (len(out) - 1)
+    return tuple(torch.cat([o, torch.full((pad,), f, dtype=o.dtype,
+                                          device=o.device)])
+                 for o, f in zip(out, fills)) + (pad,)
+
+
+def card_cases(d: int, per_rank: int, branch: int):
+    """(name, n, input kind, the names of the inputs the calls take, the
+    single-card op, the distributed call (shards, mesh), reps, step reps,
+    padded) of every case of the "dist cards" phase."""
+    C = sortx_torch.Config
+    ring = C(dist_exchange="ring")
+    full, ragged, nb = d * per_rank, d * per_rank + 13, d * branch
+    one_kv = sortx_torch.sort_kv
+
+    def dsort(**kw):
+        return lambda s, mesh: (sortx_torch.dist_sort(*s, mesh=mesh, **kw),)
+
+    def dkv(**kw):
+        return lambda s, mesh: sortx_torch.dist_sort_kv(*s, mesh=mesh, **kw)
+
+    big, small = (CARD_REPS, CARD_STEP_REPS), (0, 1)
+    return (
+        ("sort tree", full, "uniform", ("keys",),
+         lambda k: (sortx_torch.sort(k),), dsort(), *big, False),
+        ("sort ring", full, "uniform", ("keys",),
+         lambda k: (sortx_torch.sort(k),), dsort(config=ring), *big, False),
+        ("sort_kv i32", full, "uniform", ("keys", "v32"), one_kv, dkv(),
+         *big, False),
+        ("sort_kv i64", full, "uniform", ("keys", "v64"), one_kv, dkv(),
+         *big, False),
+        ("sort padded", ragged, "uniform", ("keys",),
+         lambda k: (sortx_torch.sort(k),),
+         lambda s, mesh: sortx_torch.dist_sort_padded(*s, mesh=mesh),
+         *big, True),
+        ("sort_kv padded", ragged, "uniform", ("keys", "v32"), one_kv,
+         lambda s, mesh: sortx_torch.dist_sort_kv_padded(*s, mesh=mesh),
+         *big, True),
+        ("scan", full, "uniform", ("scan",),
+         lambda x: sortx_torch.scan(x, with_total=True),
+         lambda s, mesh: sortx_torch.dist_scan(*s, with_total=True,
+                                               mesh=mesh), *big, False),
+        ("dense bounded", nb, "uniform", ("keys",),
+         lambda k: (sortx_torch.sort(k),), dsort(use_ragged=False), *small,
+         False),
+        ("dense full", nb, "dups", ("keys", "v32"), one_kv,
+         dkv(use_ragged=False, config=C(dist_dense_bounded=False)), *small,
+         False),
+        ("merge rank", nb, "dups", ("keys", "v32"), one_kv,
+         dkv(config=C(dist_local_merge="rank")), *small, False),
+        ("merge native", nb, "dups", ("keys", "v32"), one_kv,
+         dkv(config=C(dist_local_merge="native")), *small, False),
+        ("merge sort", nb, "dups", ("keys", "v32"), one_kv,
+         dkv(config=C(dist_local_merge="sort")), *small, False),
+        # 3/4 of the branch size a rank: a presorted shard arrives whole,
+        # a run longer than the tree's and the ring's power-of-two blocks
+        ("skew tree", 3 * nb // 4, "presorted", ("keys", "v32"), one_kv,
+         dkv(), *small, False),
+        ("skew ring", 3 * nb // 4, "presorted", ("keys", "v32"), one_kv,
+         dkv(config=ring), *small, False),
+        ("all equal", nb, "equal", ("keys", "v32"), one_kv, dkv(), *small,
+         False),
+        ("descending", nb, "dups", ("keys", "v32"),
+         lambda k, v: sortx_torch.sort_kv(k, v, descending=True),
+         dkv(descending=True), *small, False),
+        ("partial bits", nb, "uniform", ("keys", "v32"),
+         lambda k, v: sortx_torch.sort_kv(k, v, 12), dkv(sort_bits=12),
+         *small, False),
+        ("n < D", d - 1, "uniform", ("keys", "v32"), one_kv, dkv(), *small,
+         False),
+        ("n = 0", 0, "uniform", ("keys",), lambda k: (sortx_torch.sort(k),),
+         dsort(), *small, False))
+
+
+def card_steps(csv: str) -> dict:
+    """The dist_sort/<step> rows of a profile CSV: step -> [ms]."""
+    steps = collections.defaultdict(list)
+    with open(csv) as f:
+        for row in f:
+            name, ms = row.split(",")[:2]
+            if name.startswith("dist_sort/"):
+                steps[name[len("dist_sort/"):]].append(float(ms))
+    return steps
+
+
+def card_case(mesh, dev, csv: str, case) -> dict:
+    """One case on this rank: the global input made on its card, the
+    single-card op on the whole of it (and, for full-size cases, its time
+    and that of the op on this rank's shard alone), then the distributed
+    call on the shards: once with its launches counted and its outputs
+    held bit for bit against this rank's slice of the single-card result,
+    then `reps` whole calls timed unprofiled and `step_reps` profiled at
+    level "step". Returns what the parent checks and prints."""
+    import importlib
+
+    import torch.distributed as dist
+
+    from sortx_torch.runtime import toggle_profiling
+
+    ds = importlib.import_module("sortx_torch.parallel.dist_sort")
+    _, n, kind, names, one, call, reps, step_reps, padded = case
+    d = mesh.size()
+    glob = card_inputs(kind, n, dev, names)
+    seen = torch.tensor([card_digest(glob[0]) - (1 << 63)], device=dev)
+    every = [torch.empty_like(seen) for _ in range(d)]
+    dist.all_gather(every, seen)
+    rec = {"n": n, "same_input": all(torch.equal(e, seen) for e in every)}
+    out = one(*glob)
+    out = tuple(out) if isinstance(out, (tuple, list)) else (out,)
+    if padded:
+        out = card_padded(out, n, d)
+    shard = sortx_torch.parallel.shard_1d
+    want = [shard(w, mesh).clone() if torch.is_tensor(w) and w.dim() else w
+            for w in out]
+    shards = [shard(x, mesh).clone() for x in glob]
+    del out
+    if reps:
+        rec["one_whole_ms"] = time_ms(lambda: one(*glob), reps=3)
+        rec["one_shard_ms"] = time_ms(lambda: one(*shards))
+    del glob
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+
+    def timed():
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        got = call(shards, mesh)
+        torch.cuda.synchronize(dev)
+        return got, (time.perf_counter() - t) * 1e3
+
+    _build.launches.clear()
+    got, _ = timed()
+    rec["launches"] = dict(_build.launches)
+    rec["witness"] = [ds.last_exchange, ds.last_local_engine,
+                      ds.last_local_merge]
+    got = tuple(got) if isinstance(got, (tuple, list)) else (got,)
+    rec["on_card"] = all(o.device == dev for o in got if torch.is_tensor(o))
+    rec["ok"] = len(got) == len(want) and all(
+        same_bits(o, w) if torch.is_tensor(w) else o == w
+        for o, w in zip(got, want))
+    rec["digest"] = f"{card_digest(got[0]):016x}"
+    del got, want
+    rec["whole_ms"] = [timed()[1] for _ in range(reps)]
+    if os.path.exists(csv):
+        os.remove(csv)
+    toggle_profiling(True, csv, level="step")
+    try:
+        for _ in range(step_reps):
+            timed()
+    finally:
+        toggle_profiling(False, level="op")
+    rec["steps"] = card_steps(csv) if os.path.exists(csv) else {}
+    del shards
+    torch.cuda.empty_cache()
+    return rec
+
+
+def cards_rank(rank: int, env: dict, tmp: str, per_rank: int,
+               branch: int) -> None:
+    """One rank of the "dist cards" phase, started as torchrun starts one
+    (its environment, LOCAL_RANK = the card): init_multihost() with no
+    arguments, make_sort_mesh(), then every case of card_cases; writes
+    its report for the parent."""
+    import torch.distributed as dist
+
+    from sortx_torch.parallel import init_multihost
+
+    os.environ.update(env, RANK=str(rank), LOCAL_RANK=str(rank))
+    init_multihost()
+    try:
+        mesh = sortx_torch.make_sort_mesh()
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        report = {"backend": dist.get_backend(),
+                  "card": torch.cuda.current_device(),
+                  "mesh": mesh.device_type,
+                  "default_group": mesh.get_group().group_name
+                  == dist.group.WORLD.group_name,
+                  "cases": {c[0]: card_case(mesh, dev,
+                                            f"{tmp}/profile.{rank}.csv", c)
+                            for c in card_cases(mesh.size(), per_rank,
+                                                branch)}}
+        with open(f"{tmp}/cards.{rank}.json", "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def cards_path() -> dict:
+    """The "dist cards" phase: D = min(cards, 4) ranks, one a card, over
+    NCCL (spawned after the kernels are built, so they only load them),
+    each rank's shards held bit for bit against its slice of the
+    single-card op of the whole array; the witnesses, the steps, the
+    launches and the times. Returns the ranks' summed launches."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from sortx_torch.parallel.multihost import simulate_hosts_flags
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"dist cards: skipped, {count} card visible (needs 2)",
+              flush=True)
+        return {}
+    d = min(count, 4)
+    cards = "; ".join(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[:d])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()     # rank 0 shares card 0 with this process
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        mp.spawn(cards_rank, args=(simulate_hosts_flags(d), tmp, CARD_KEYS,
+                                   CARD_BRANCH), nprocs=d, join=True)
+        print(f"dist cards D={d}: ranks spawned, ran and exited in "
+              f"{time.perf_counter() - t:.1f} s")
+        reports = []
+        for r in range(d):
+            with open(f"{tmp}/cards.{r}.json") as f:
+                reports.append(json.load(f))
+    return cards_report(reports, cards)
+
+
+def cards_report(reports: list, cards: str) -> dict:
+    """The parent's checks of the ranks' reports, and the time lines."""
+    d = len(reports)
+    check(all(x["backend"] == "nccl" and x["card"] == r
+              and x["mesh"] == "cuda" and x["default_group"]
+              for r, x in enumerate(reports)),
+          f"dist cards D={d}: every rank on NCCL, on card LOCAL_RANK, its "
+          "mesh over the default group")
+    total = collections.Counter()
+    label = f"{d} cards over NCCL"
+    branches = card_branches(d)
+    if not branches:
+        print(f"dist cards D={d}: no witness or step is held (the tree and "
+              "the ring need a power-of-two D)", flush=True)
+    for case in reports[0]["cases"]:
+        xs = [x["cases"][case] for x in reports]
+        n = xs[0]["n"]
+        check(all(x["same_input"] and x["ok"] and x["on_card"] for x in xs),
+              f"dist cards {case} D={d}, n={n}: every rank's shard on its "
+              "card == its slice of the single-card op of the whole array, "
+              f"bit for bit; digests {[x['digest'] for x in xs]}")
+        need = (("scan",) if case == "scan" else
+                () if case in ("n < D", "n = 0") else NETWORK)
+        counts = [[x["launches"].get(k, 0) for k in NETWORK + ("scan",)]
+                  for x in xs]
+        check(all(all(x["launches"].get(k, 0) > 0 for k in need)
+                  for x in xs), f"dist cards {case} D={d}: every rank "
+              f"launched {', '.join(need) or 'what it needed'} (K1-K4 a "
+              f"rank: {counts})")
+        for x in xs:
+            total.update(x["launches"])
+        if case in branches:
+            witness, step = branches[case]
+            skew_ok = step in SKEW or not any(set(x["steps"]) & set(SKEW)
+                                              for x in xs)
+            check(all(x["witness"] == witness and step in x["steps"]
+                      for x in xs) and skew_ok,
+                  f"dist cards {case} D={d}: witness {witness}, ran "
+                  f"{step!r}: {[x['witness'] for x in xs]}, "
+                  f"{sorted(xs[0]['steps'])}")
+        if not xs[0]["whole_ms"]:
+            continue
+        for name in xs[0]["steps"]:
+            ms = max(statistics.median(x["steps"][name]) for x in xs)
+            print(f"time dist cards {case} D={d} n={n} step (profiled): "
+                  f"{name}: {ms!r} ms (the slowest rank's median; {label}) "
+                  f"[{cards}]", flush=True)
+        ms = max(statistics.median(x["whole_ms"]) for x in xs)
+        print(f"time dist cards {case} D={d} n={n} whole call "
+              f"(unprofiled): {ms!r} ms = {n / (ms / 1e3):.6g}/s (the "
+              f"slowest rank's median of {CARD_REPS}; {label}) [{cards}]",
+              flush=True)
+        for what, key, size in (("the whole array", "one_whole_ms", n),
+                                ("one rank's shard", "one_shard_ms",
+                                 -(-n // d))):
+            ms = max(statistics.median(x[key]) for x in xs)
+            print(f"time dist cards {case}: the single-card op on {what}, "
+                  f"n={size}: {ms!r} ms = {size / (ms / 1e3):.6g}/s (the "
+                  f"slowest card's median, every card at once on its own "
+                  f"copy) [{cards}]",
+                  flush=True)
+    return total
+
+
 def main() -> None:
     t0 = lap = time.perf_counter()
 
@@ -2289,6 +2687,10 @@ def main() -> None:
         if name in NETWORK + ("scan",):
             counts[name] += c
     took("distributed path")
+    for name, c in cards_path().items():
+        if name in NETWORK + ("scan",):
+            counts[name] += c
+    took("dist cards")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": counts[name],
                 "max_abs_err": err[name], "ms": ms[name][0],

@@ -15,13 +15,17 @@ entry launches on the stream it is given (PyTorch's current stream),
 does not synchronise, allocates nothing, and returns
 ``cudaGetLastError()`` after its launches; :func:`launch` raises if that
 is not 0 and otherwise counts one launch of the kernel in
-:data:`launches`.
+:data:`launches`. Processes that start together on a fresh tree (the
+ranks of a distributed run) build once: the first takes
+:func:`build_lock` and builds, the rest wait on it and load.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -33,7 +37,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["library", "launch", "launches", "on_card", "check_device",
-           "nvcc_path", "BUILD_DIR", "SOURCES", "NVCC_FLAGS"]
+           "nvcc_path", "build_lock", "BUILD_DIR", "SOURCES", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
@@ -88,20 +92,32 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+@contextlib.contextmanager
+def build_lock(build_dir: Path):
+    """Hold an exclusive ``flock`` on ``build_dir/.build.lock`` (made with
+    the directory if need be): whoever checks for a library and builds it
+    inside, builds it alone. The lock dies with its process."""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with open(build_dir / ".build.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        yield
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     out = BUILD_DIR / f"libsortx_torch_{_digest()}.so"
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-            nvcc = nvcc_path()
-            objs = [os.path.join(tmp, src.stem + ".o") for src in SOURCES]
-            _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
-                      for src, obj in zip(SOURCES, objs)])
-            so = os.path.join(tmp, out.name)
-            _run_all([[nvcc, "-shared", "-o", so, *objs]])
-            os.replace(so, out)
+    with build_lock(BUILD_DIR):
+        if not out.exists():
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+                nvcc = nvcc_path()
+                objs = [os.path.join(tmp, src.stem + ".o")
+                        for src in SOURCES]
+                _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+                          for src, obj in zip(SOURCES, objs)])
+                so = os.path.join(tmp, out.name)
+                _run_all([[nvcc, "-shared", "-o", so, *objs]])
+                os.replace(so, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _ENTRIES.items():
         fn = getattr(lib, name)

@@ -28,11 +28,14 @@ The reference decides its branches inside one compiled program
 (``lax.cond``); here they are host branches. A branch that holds a
 collective must be taken by every rank alike, so each one is decided
 from data every rank holds identically: the all-gathered lengths and
-count matrix. Where a gloo group carries CUDA tensors (several ranks
-sharing one card), the data crosses through host memory: gloo's
-all-to-all takes CUDA tensors and stages them itself, and the ring's
-hops copy through pinned host buffers; the sorts and merges still run
-on the card.
+count matrix. On NCCL (one rank a card) every collective and the ring's
+point-to-point hops move the ranks' card buffers directly; a hop's
+batch is never the group's first collective (the lengths are gathered
+before it), so ranks with nothing to move may post nothing. Where a gloo
+group carries CUDA tensors (several ranks sharing one card), the data
+crosses through host memory: gloo's all-to-all takes CUDA tensors and
+stages them itself, and the ring's hops copy through pinned host
+buffers; the sorts and merges still run on the card.
 
 Words are the u32 images of the keys carried as int32
 (``utils/words.py``); values of every width ride as 32-bit words too

@@ -25,7 +25,9 @@ def make_sort_mesh(n_devices: int | None = None, devices=None):
     ``devices`` (global ranks) and ``n_devices`` may only name the whole
     group in rank order: the mesh's order is the order of the shards.
     The mesh's device type is "cuda", or "cpu" for a gloo group in a
-    process that sees no card. Raises if no process group exists.
+    process that sees no card. Over an NCCL group its one dimension is
+    the default group itself, so a call builds no communicator. Raises
+    if no process group exists.
     """
     from torch.distributed.device_mesh import DeviceMesh
 

@@ -6,9 +6,10 @@ the host C++ compiler (``$CXX``, else ``c++`` or ``g++`` on PATH) at
 first use, into a shared library whose name carries a hash of the
 source, the flags and the compiler, under :data:`BUILD_DIR` (the
 checkout's ``build/sortx_torch/``, beside the CUDA library but built
-apart from it, so no ``nvcc`` is needed). The build writes a temporary
-file and moves it into place, so processes may build side by side. A
-missing compiler or a failed build raises; nothing falls back.
+apart from it, so no ``nvcc`` is needed). The build runs under
+``ops/_build.py:build_lock``, so processes that start together build
+once and the rest load what the first built. A missing compiler or a
+failed build raises; nothing falls back.
 
 ``host_merge`` is the host half of the out-of-core sort
 (``ops/out_of_core.py``); ``host_sort`` / ``host_sort_kv`` /
@@ -27,6 +28,8 @@ import tempfile
 from pathlib import Path
 
 import numpy as np
+
+from ..ops._build import build_lock
 
 __all__ = ["available", "build_native", "host_sort", "host_sort_kv",
            "host_scan", "host_merge", "BUILD_DIR", "SOURCE", "CXX_FLAGS"]
@@ -91,17 +94,17 @@ def build_native() -> bool:
         return True
     cxx = _compiler()
     out = _library_path(cxx)
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-            so = os.path.join(tmp, out.name)
-            cmd = [cxx, *CXX_FLAGS, "-o", so, str(SOURCE)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"host library build failed "
-                                   f"({res.returncode}):\n{' '.join(cmd)}\n"
-                                   f"{res.stderr[-4000:]}")
-            os.replace(so, out)
+    with build_lock(BUILD_DIR):
+        if not out.exists():
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+                so = os.path.join(tmp, out.name)
+                cmd = [cxx, *CXX_FLAGS, "-o", so, str(SOURCE)]
+                res = subprocess.run(cmd, capture_output=True, text=True)
+                if res.returncode != 0:
+                    raise RuntimeError(
+                        f"host library build failed ({res.returncode}):\n"
+                        f"{' '.join(cmd)}\n{res.stderr[-4000:]}")
+                os.replace(so, out)
     _bind(out)
     return True
 

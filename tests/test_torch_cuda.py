@@ -929,3 +929,76 @@ def test_device_capacity_keys_on_the_card(dev):
     budget = int(torch.cuda.mem_get_info()[1] * 0.90)
     assert device_capacity_keys(1) == 1 << ((budget // 8).bit_length() - 1)
     assert device_capacity_keys(3) == 1 << ((budget // 24).bit_length() - 1)
+
+
+# --- the distributed layer, one rank per card over NCCL -------------------
+
+
+def _nccl_rank(rank: int, env: dict, n: int, out: str) -> None:
+    """One of D ranks, started as torchrun starts one: dist_sort,
+    stable dist_sort_kv and dist_scan of its shard of a seeded global
+    array, each held bit for bit against its slice of the single-card
+    op of the whole array, made on its own card."""
+    import json
+    import os
+
+    import torch.distributed as dist
+
+    from sortx_torch.parallel import init_multihost, shard_1d
+
+    os.environ.update(env, RANK=str(rank), LOCAL_RANK=str(rank))
+    init_multihost()
+    try:
+        mesh = sortx_torch.make_sort_mesh()
+        dev = torch.device("cuda", rank)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        keys = torch.randint(0, 2**32, (n,), device=dev, generator=gen,
+                             dtype=torch.int64).to(torch.int32)
+        u = keys.view(torch.uint32)
+        values = torch.arange(n, dtype=torch.int32, device=dev)
+
+        def mine(t):
+            return shard_1d(t, mesh).clone()
+
+        def same(got, want):
+            return (got.device == dev and got.shape == want.shape
+                    and torch.equal(got.view(torch.int32),
+                                    want.view(torch.int32)))
+
+        wk, wv = sortx_torch.sort_kv(u, values)
+        ws, wt = sortx_torch.scan(keys, with_total=True)
+        launches.clear()
+        ks, vs = sortx_torch.dist_sort_kv(mine(u), mine(values), mesh=mesh)
+        s, t = sortx_torch.dist_scan(mine(keys), with_total=True, mesh=mesh)
+        res = {"backend": dist.get_backend(),
+               "card": torch.cuda.current_device(),
+               "sort": same(sortx_torch.dist_sort(mine(u), mesh=mesh),
+                            mine(sortx_torch.sort(u))),
+               "sort_kv": same(ks, mine(wk)) and same(vs, mine(wv)),
+               "scan": same(s, mine(ws)) and same(t, wt),
+               "launches": dict(launches)}
+        with open(f"{out}/rank{rank}.json", "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dist_ops_across_cards_match_the_single_card_ops(dev, tmp_path):
+    import json
+
+    import torch.multiprocessing as mp
+
+    from sortx_torch.parallel.multihost import simulate_hosts_flags
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA cards: NCCL takes one rank a card")
+    d = min(torch.cuda.device_count(), 4)
+    mp.spawn(_nccl_rank, args=(simulate_hosts_flags(d), 1 << 20,
+                               str(tmp_path)), nprocs=d, join=True)
+    for r in range(d):
+        res = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert res["backend"] == "nccl" and res["card"] == r
+        assert res["sort"] and res["sort_kv"] and res["scan"], res
+        assert all(res["launches"].get(k, 0) > 0 for k in
+                   ("bitonic_block", "bitonic_tail", "bitonic_global",
+                    "scan")), res
