@@ -41,6 +41,24 @@ u32 keys, 512 MB per stream, or 2048 rows of 2^16):
              (key transform, copies, device sorts, host merge); and one
              flagship entry traced by runtime.profiler, for the share of
              the traced window in which the card ran a kernel
+  graph      every op of the capture list (sort over its key types,
+             sort_bits, descending and ragged n; sort_kv stable and
+             unstable with 32- and 64-bit values; scan; entry; argsort;
+             lexsort; merge / merge_kv; sort_segments; scan_segments;
+             kth_value with a rank tensor; median; top_k; unique;
+             histogram; sort_rows / sort_kv_rows) captured once into a
+             CUDA graph after an eager warm-up and an eager call under
+             set_sync_debug_mode("error"), then replayed on random,
+             nondecreasing, nonincreasing and all-equal inputs copied
+             into its static input (kth_value also on a new rank), each
+             replay bit for bit the eager call on the same input; the
+             main path (sort, sort_kv, scan, entry) at 2^27 and 2^26 +
+             13, each eager call also held against the host engine, the
+             rest at 2^22; the hybrid refusing capture; eager calls
+             against replays from 2^16 to 2^27; and the traced idle
+             share of a replayed entry and of a replayed sort of
+             nondecreasing keys. Launch counts come from eager runs: a
+             launch under capture counts once, a replay not at all
   dist       the distributed layer (sortx_torch.parallel): at world size
              1 on NCCL, dist_sort and stable dist_sort_kv at 2^27,
              dist_sort_padded at 2^26 + 13 and dist_scan, each bit for
@@ -133,6 +151,10 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "run_mover": ("sortx_torch/csrc/shuffle.cu", "sortx/ops/shuffle.py:277"),
     "piece_mover": ("sortx_torch/csrc/shuffle.cu",
                     "sortx/ops/shuffle.py:107"),
+    # K8 replaces no Pallas kernel: it is the jnp.flip branch of the
+    # reference's lax.cond for a nonincreasing keys-only input
+    "reverse": ("sortx_torch/csrc/bitonic.cu",
+                "sortx/ops/sort_pallas.py:349"),
 }
 NETWORK = ("bitonic_block", "bitonic_tail", "bitonic_global")
 # The card's peaks the bounds divide by (H100 SXM, NVIDIA's data sheet):
@@ -293,11 +315,36 @@ def kernel_checks(dev) -> dict:
               f"{what}: ns={ns} nk={nk} n={n} n_valid={nv}, all {passes} "
               "passes == plain, and the keys sorted")
         del x, keys
+    reverse_checks(rng, dev, err)
     scan_checks(rng, dev, err)
     rows_walks(rng, dev, err)
     histogram_checks(rng, dev, err)
     mover_checks(dev, err)
     return err
+
+
+def order_flag(value: int, dev) -> torch.Tensor:
+    """A 0-d int32 order flag (utils.words.order_flags) on the card."""
+    return torch.full((), value, dtype=torch.int32, device=dev)
+
+
+def reverse_checks(rng, dev, err: dict) -> None:
+    """K8 against its plain version at the main path's sizes, under each
+    order flag: it reverses only a nonincreasing input."""
+    for n in (N, RAGGED, 3):
+        src = words(rng, n, dev)
+        for flag in range(4):
+            out = words(rng, n, dev)
+            want = out.clone()
+            tb.reverse_plain(src, want, order_flag(flag, dev))
+            tb.reverse_ordered(src, out, order_flag(flag, dev))
+            torch.cuda.synchronize()
+            err["reverse"] = max(err["reverse"], max_abs_err(out, want))
+            check(torch.equal(out, want) and torch.equal(
+                      out, src.flip(0)) == (flag == 2),
+                  f"reverse n={n} flags={flag} == plain (reversed only "
+                  "where the flags say nonincreasing alone)")
+        del src, out, want
 
 
 def scan_checks(rng, dev, err: dict) -> None:
@@ -604,7 +651,7 @@ def main_path(dev) -> dict:
           and torch.equal(s, ps)
           and int(total) & 0xFFFFFFFF == int(k64.sum()) & 0xFFFFFFFF,
           f"entry(): sort_kv then scan n={N}, total == sum of keys mod 2^32")
-    return read_launches("flagship", NETWORK + ("scan",))
+    return read_launches("flagship", NETWORK + ("scan", "reverse"))
 
 
 def read_launches(path: str, kernels) -> dict:
@@ -1412,6 +1459,25 @@ def timings(dev, card: str, err: dict):
     shifted = torch.cat([keys[:1], keys])[1:]
     line(f"scan kernel n={N}, a view shifted by one word, {ROW} calls in a "
          "row", time_ms(lambda: tile_scan(shifted), calls=ROW), N)
+    # K8 on a nonincreasing input (it reverses), and skipped
+    out = torch.empty_like(keys)
+    down, up = order_flag(2, dev), order_flag(1, dev)
+    k_ms = time_ms(lambda: tb.reverse_ordered(keys, out, down), calls=ROW)
+    check(torch.equal(out, keys.flip(0)), f"reverse n={N}: timed kernel "
+          "output == the input reversed")
+    p_ms = time_ms(lambda: tb.reverse_plain(keys, out, down))
+    ms["reverse"] = (line(f"reverse kernel n={N}, {ROW} calls in a row",
+                          k_ms, N), line(f"reverse plain n={N}", p_ms, N))
+    line(f"reverse kernel n={N} on nondecreasing flags (every CTA returns "
+         f"at once), {ROW} calls in a row",
+         time_ms(lambda: tb.reverse_ordered(keys, out, up), calls=ROW))
+    # K8 reads n words and writes n words; no arithmetic to speak of
+    extra["reverse"] = dict(bound(2 * 4 * N, 0), library_ms=line(
+        f"torch.flip int32 n={N}, {ROW} calls in a row",
+        time_ms(lambda: torch.flip(keys, (0,)), calls=ROW), N))
+    print(f"bound reverse n={N}: {extra['reverse']['bound_ms']!r} ms by "
+          f"{extra['reverse']['bound_by']}")
+    del out
     return ms, extra
 
 
@@ -1963,54 +2029,406 @@ def idle_share(dev, card: str) -> None:
     """One flagship entry (stable sort_kv, then scan) at 2^27 under
     runtime.profiler.trace: the share of the traced window in which a
     CUDA kernel ran (the union of the kernel intervals)."""
-    import tempfile
-
-    from sortx_torch.runtime import profiler
-
     gen = torch.Generator(device=dev).manual_seed(SEED + 22)
     keys = cwords(gen, N, dev).view(torch.uint32)
     values = torch.arange(N, dtype=torch.int32, device=dev)
     sortx_torch.entry(keys, values)          # warm
     torch.cuda.synchronize()
+    traced_idle_share(card, f"entry n={N}",
+                      lambda: sortx_torch.entry(keys, values))
+
+
+def traced_idle_share(card: str, what: str, run) -> None:
+    """run() under runtime.profiler.trace, once to warm the profiler and
+    once annotated as ``what``: print the share of the annotated window
+    in which the card ran a kernel (the union of the kernel intervals)
+    and in which it ran a kernel, a copy or a memset,
+    the gaps between them, and the busiest names."""
+    import tempfile
+
+    from sortx_torch.runtime import profiler
+
     with tempfile.TemporaryDirectory() as d:
         with profiler.trace(d):
-            with profiler.annotate("sortx_torch.entry"):
-                sortx_torch.entry(keys, values)
+            run()                   # the profiler's start stays outside
+            torch.cuda.synchronize()
+            with profiler.annotate(what):
+                run()
                 torch.cuda.synchronize()
         (path,) = [os.path.join(d, f) for f in os.listdir(d)]
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    window = [e for e in events if e.get("name") == "sortx_torch.entry"
+    window = [e for e in events if e.get("name") == what
               and e.get("cat") == "user_annotation"]
-    check(len(window) >= 1, "the trace holds the annotated entry")
+    check(len(window) >= 1, f"the trace holds the annotated {what}")
     w0 = float(window[0]["ts"])
     w1 = w0 + float(window[0]["dur"])
-    spans = sorted((max(float(e["ts"]), w0),
-                    min(float(e["ts"]) + float(e["dur"]), w1))
-                   for e in events if e.get("cat") == "kernel"
-                   and e.get("ph") == "X")
-    spans = [(a, b) for a, b in spans if b > a]
-    check(len(spans) > 0, f"the trace holds {len(spans)} CUDA kernels "
-          "inside the entry's window")
-    busy, end, gaps = 0.0, spans[0][0], []
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            if a > end:
-                gaps.append(a - end)
-            end = b
-    share = busy / (w1 - w0)
-    print(f"time entry n={N} traced window: {(w1 - w0) / 1e3!r} ms, "
-          f"kernels busy {busy / 1e3!r} ms = {share!r} of it, device idle "
-          f"share {1 - share!r} ({len(spans)} kernels) [{card}]",
-          flush=True)
+    device = [(max(float(e["ts"]), w0),
+               min(float(e["ts"]) + float(e["dur"]), w1), e["cat"],
+               e.get("name", "?")) for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and e.get("ph") == "X"]
+    device = [e for e in device if e[1] > e[0]]
+    kernels = [e for e in device if e[2] == "kernel"]
+    check(len(kernels) > 0, f"the trace holds {len(kernels)} CUDA kernels "
+          f"inside the window of {what}")
+
+    def union(spans):
+        spans = sorted(spans)
+        busy, end, gaps = 0.0, spans[0][0], []
+        for a, b, *_ in spans:
+            if b > end:
+                busy += b - max(a, end)
+                if a > end:
+                    gaps.append(a - end)
+                end = b
+        return busy, gaps, end
+
+    width = w1 - w0
+    k_busy = union(kernels)[0]
+    busy, gaps, end = union(device)
+    print(f"time {what} traced window: {width / 1e3!r} ms, kernels busy "
+          f"{k_busy / 1e3!r} ms (device idle share {1 - k_busy / width!r}, "
+          f"{len(kernels)} kernels), kernels, copies and memsets busy "
+          f"{busy / 1e3!r} ms (device idle share {1 - busy / width!r}, "
+          f"{len(device)} activities) [{card}]", flush=True)
     inner = sorted(gaps, reverse=True)
-    print(f"time entry n={N} idle: before the first kernel "
-          f"{(spans[0][0] - w0) / 1e3!r} ms, after the last "
-          f"{(w1 - end) / 1e3!r} ms, between kernels {sum(inner) / 1e3!r} "
-          f"ms in {len(inner)} gaps (largest "
-          f"{[round(g / 1e3, 4) for g in inner[:4]]} ms) [{card}]",
-          flush=True)
+    first = min(e[0] for e in device)
+    print(f"time {what} idle: before the first activity "
+          f"{(first - w0) / 1e3!r} ms, after the last {(w1 - end) / 1e3!r} "
+          f"ms, between activities {sum(inner) / 1e3!r} ms in {len(inner)} "
+          f"gaps (largest {[round(g / 1e3, 4) for g in inner[:4]]} ms) "
+          f"[{card}]", flush=True)
+    by_name = collections.Counter()
+    for a, b, cat, name in device:
+        by_name[f"{cat} {name[:60]}"] += b - a
+    print(f"time {what} busiest: " + "; ".join(
+        f"{name}: {t / 1e3:.4f} ms" for name, t in by_name.most_common(6))
+        + f" [{card}]", flush=True)
+
+
+# --- the ops inside a CUDA graph ------------------------------------------
+
+GRAPH_N = 1 << 22      # the capture list's ops off the main path
+GRAPH_KINDS = ("random", "nondecreasing", "nonincreasing", "all-equal")
+GRAPH_TIMES = (1 << 16, 1 << 20, 1 << 22, N)
+GRAPH_ROW = 10         # calls in a row per timing, eager and replayed
+GRAPH_REPS = 7         # timings per median
+HOST = sortx_torch.Config(engine="host")
+
+
+def arranged(t: torch.Tensor, kind: str) -> torch.Tensor:
+    """Keys t (1-D, or rows along the last dimension) as one kind of the
+    graph phase's inputs: as they are, in the order of sortx_torch.sort
+    (its host engine, torch.sort on the radix image), in the reverse of
+    it, or all equal to the first key."""
+    if kind == "random":
+        return t
+    if kind == "all-equal":
+        return t.reshape(-1)[:1].expand(t.shape).clone()
+    down = kind == "nonincreasing"
+    if t.dim() == 2:
+        return sortx_torch.sort_rows(t, descending=down, config=HOST)
+    return sortx_torch.sort(t, descending=down, config=HOST)
+
+
+def graph_keys(gen, dtype, n: int, dev) -> torch.Tensor:
+    """n random keys of dtype: duplicate-heavy 32- and 16-bit words,
+    random 64-bit words, floats from a normal law."""
+    if dtype.is_floating_point:
+        return torch.randn(n, generator=gen, device=dev).to(dtype)
+    if dtype in (torch.int64, torch.uint64):
+        w = torch.randint(-2**62, 2**62, (n,), generator=gen, device=dev)
+        return w.view(dtype)
+    w = cwords(gen, n, dev)
+    if dtype in (torch.int16, torch.uint16):
+        return w.to(torch.int16).view(dtype)
+    return (w & 0x0FFFFFFF).view(dtype)   # ties: 2^28 values
+
+
+def same_tree(a, b) -> bool:
+    """Two outputs (a tensor or a tuple of them) equal bit for bit."""
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(iv(x.contiguous()), iv(y.contiguous()))
+        for x, y in zip(a, b))
+
+
+def no_sync(run):
+    """run() with every implicit synchronisation an error."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+class Captured:
+    """One op captured into a CUDA graph on static inputs: made from
+    make("random"), warmed up eagerly on a side stream (which also builds
+    the kernels), checked to make no implicit sync, then captured."""
+
+    def __init__(self, name: str, make, run):
+        self.name, self.make, self.run = name, make, run
+        self.static = make("random")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run(self.static)
+        torch.cuda.current_stream().wait_stream(side)
+        no_sync(lambda: run(self.static))
+        torch.cuda.synchronize()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = run(self.static)
+        torch.cuda.synchronize()
+
+    def load(self, inputs: dict) -> None:
+        for k, t in inputs.items():
+            self.static[k].copy_(t)
+
+    def replay_checks(self, kinds, ref=None) -> None:
+        """For each kind: copy_ its inputs into the static ones, replay,
+        and hold the replay bit for bit against the eager call on the
+        same input (and that against ref(static, kind, eager) if given)."""
+        for kind in kinds:
+            self.load(self.make(kind) if isinstance(kind, str) else kind[1])
+            label = kind if isinstance(kind, str) else kind[0]
+            self.graph.replay()
+            eager = self.run(self.static)
+            extra = "" if ref is None else ref(self.static, label, eager)
+            check(same_tree(self.out, eager),
+                  f"graph {self.name} {label}: replay == eager bit for "
+                  f"bit{extra}")
+
+    def free(self) -> None:
+        del self.graph, self.out, self.static
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def pairs(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The sorted (key, value) pairs of 32-bit words, as int64."""
+    return torch.sort((iv(k).to(torch.int64) << 32)
+                      | (iv(v).to(torch.int64) & 0xFFFFFFFF)).values
+
+
+def main_graph_ops(dev, n: int) -> dict:
+    """name -> (make(kind), run(static), ref(static, kind, eager)): the
+    main path's ops, each eager output held against the host engine on
+    the same input (unstable sort_kv: its keys, and its (key, value)
+    multiset, or on a presorted input its values as they are)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    vals = torch.arange(n, dtype=torch.int32, device=dev)
+
+    def keys(kind):
+        return {"k": arranged(graph_keys(gen, torch.uint32, n, dev), kind)}
+
+    def kv(kind):
+        return dict(keys(kind), v=cwords(gen, n, dev))
+
+    def vs_host(fn, what):
+        def ref(st, kind, eager):
+            check(same_tree(eager, fn(st, HOST)),
+                  f"graph {what} n={n} {kind}: eager == the host engine")
+            return ""
+        return ref
+
+    def unstable_ref(st, kind, eager):
+        ks, vs = eager
+        want = sortx_torch.sort(st["k"], config=HOST)
+        kept = (torch.equal(vs, st["v"]) if kind in ("nondecreasing",
+                                                     "all-equal")
+                else torch.equal(pairs(ks, vs), pairs(st["k"], st["v"])))
+        check(same_tree(ks, want) and kept,
+              f"graph sort_kv unstable n={n} {kind}: eager keys == the host "
+              "engine's, values " + ("as they came (the presorted branch)"
+                                     if kind in ("nondecreasing", "all-equal")
+                                     else "a permutation within the pairs"))
+        return ""
+
+    sort = lambda st, cfg=None: sortx_torch.sort(st["k"], config=cfg)  # noqa
+    kv_s = lambda st, cfg=None: sortx_torch.sort_kv(  # noqa: E731
+        st["k"], st["v"], config=cfg)
+    scan = lambda st, cfg=None: sortx_torch.scan(  # noqa: E731
+        st["k"].view(torch.int32), with_total=True, config=cfg)
+    entry = lambda st, cfg=None: sortx_torch.entry(  # noqa: E731
+        st["k"], vals, config=cfg)
+    return {
+        "sort u32": (keys, sort, vs_host(sort, "sort u32")),
+        "sort_kv stable": (kv, kv_s, vs_host(kv_s, "sort_kv stable")),
+        "sort_kv unstable": (kv, lambda st: sortx_torch.sort_kv(
+            st["k"], st["v"], stable=False), unstable_ref),
+        "scan with total": (keys, scan, vs_host(scan, "scan")),
+        "entry": (keys, entry, vs_host(entry, "entry")),
+    }
+
+
+def other_graph_ops(dev, n: int = GRAPH_N) -> dict:
+    """name -> (make(kind), run(static)): the rest of the capture list at
+    n = 2^22 (sort_rows: 64 rows of 2^16)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 52)
+
+    def keys(dtype, m=n, **more):
+        def make(kind):
+            return dict({"k": arranged(graph_keys(gen, dtype, m, dev), kind)},
+                        **{k: f(m) for k, f in more.items()})
+        return make
+
+    v32 = lambda m: cwords(gen, m, dev)  # noqa: E731
+    v64 = lambda m: graph_keys(gen, torch.int64, m, dev)  # noqa: E731
+    x32 = lambda m: cwords(gen, m, dev) & 0xFFFF  # noqa: E731
+
+    def merged(kind):
+        both = graph_keys(gen, torch.uint32, n + n // 2, dev)
+        if kind == "all-equal":
+            both = arranged(both, kind)
+        srt = arranged(both, "nondecreasing")
+        if kind == "random":       # two sorted runs that interleave
+            a = arranged(both[:n], "nondecreasing")
+            b = arranged(both[n:], "nondecreasing")
+        else:                      # a wholly below b, or wholly above it
+            a, b = srt[:n], srt[n:]
+            if kind == "nonincreasing":
+                a, b = srt[n // 2:], srt[:n // 2]
+        return {"a": a, "b": b, "va": v32(n), "vb": v32(n // 2)}
+
+    offsets = torch.tensor([0, 0, 17, n // 3, n // 3, n - 5, n],
+                           dtype=torch.int64, device=dev)
+    rows = (64, n // 64)
+
+    def row_keys(kind):
+        k = graph_keys(gen, torch.uint32, n, dev).view(rows)
+        return {"k": arranged(k, kind), "v": v32(n).view(rows)}
+
+    def ranked(kind):
+        return dict(keys(torch.uint32)(kind),
+                    r=torch.full((), n // 3, dtype=torch.int32, device=dev))
+
+    S = lambda st, *a, **kw: sortx_torch.sort(st["k"], *a, **kw)  # noqa
+    ops = {f"sort {name}": (keys(dt), S) for name, dt in (
+        ("i32", torch.int32), ("f32", torch.float32), ("u16", torch.uint16),
+        ("bf16", torch.bfloat16), ("u64", torch.uint64),
+        ("i64", torch.int64), ("f64", torch.float64))}
+    ops.update({
+        "sort ragged u32": (keys(torch.uint32, n + 13), S),
+        "sort sort_bits=8 (packed)": (keys(torch.uint32),
+                                      lambda st: S(st, 8)),
+        "sort sort_bits=20": (keys(torch.uint32), lambda st: S(st, 20)),
+        "sort descending": (keys(torch.uint32),
+                            lambda st: S(st, descending=True)),
+        "sort_kv stable 64-bit values": (
+            keys(torch.uint32, v=v64),
+            lambda st: sortx_torch.sort_kv(st["k"], st["v"])),
+        "sort_kv unstable 64-bit values": (
+            keys(torch.uint32, v=v64),
+            lambda st: sortx_torch.sort_kv(st["k"], st["v"], stable=False)),
+        "sort_kv stable ragged sort_bits=12": (
+            keys(torch.uint32, n + 13, v=v32),
+            lambda st: sortx_torch.sort_kv(st["k"], st["v"], 12)),
+        "argsort": (keys(torch.uint32),
+                    lambda st: sortx_torch.argsort(st["k"])),
+        "argsort u64": (keys(torch.uint64),
+                        lambda st: sortx_torch.argsort(st["k"])),
+        "lexsort": (keys(torch.uint32, v=v32),
+                    lambda st: sortx_torch.lexsort((st["v"], st["k"]))),
+        "merge": (merged, lambda st: sortx_torch.merge(st["a"], st["b"])),
+        "merge_kv": (merged, lambda st: sortx_torch.merge_kv(
+            st["a"], st["va"], st["b"], st["vb"])),
+        "sort_segments": (keys(torch.uint32), lambda st:
+                          sortx_torch.sort_segments(st["k"], offsets)),
+        "scan_segments": (
+            lambda kind: {"k": arranged(x32(n), kind)},
+            lambda st: sortx_torch.scan_segments(st["k"], offsets,
+                                                 with_totals=True)),
+        "kth_value (rank tensor)": (ranked, lambda st: sortx_torch.kth_value(
+            st["k"], st["r"])),
+        "median": (keys(torch.float32),
+                   lambda st: sortx_torch.median(st["k"])),
+        "top_k k=64": (keys(torch.int32),
+                       lambda st: sortx_torch.top_k(st["k"], 64)),
+        "top_k k=64 with indices": (
+            keys(torch.int32),
+            lambda st: sortx_torch.top_k(st["k"], 64, return_indices=True)),
+        "unique": (lambda kind: {"k": arranged(cwords(gen, n, dev) & 0xFFF,
+                                               kind).view(torch.uint32)},
+                   lambda st: sortx_torch.unique(st["k"], 4096)),
+        "histogram": (keys(torch.uint32),
+                      lambda st: sortx_torch.histogram(st["k"], 8, 20)),
+        "sort_rows": (row_keys, lambda st: sortx_torch.sort_rows(st["k"])),
+        "sort_kv_rows": (row_keys, lambda st: sortx_torch.sort_kv_rows(
+            st["k"], st["v"])),
+    })
+    return ops
+
+
+def graph_timings(dev, card: str) -> None:
+    """Eager calls against replays of the same op on the same input,
+    GRAPH_ROW calls in a row per timing, the median of GRAPH_REPS: sort,
+    stable sort_kv and scan at 2^16..2^27, and sort on nondecreasing and
+    nonincreasing keys at 2^27."""
+    cases = [(name, n, "random") for n in GRAPH_TIMES
+             for name in ("sort u32", "sort_kv stable", "scan with total")]
+    cases += [("sort u32", N, "nondecreasing"), ("sort u32", N,
+                                                 "nonincreasing")]
+    for name, n, kind in cases:
+        make, run, _ = main_graph_ops(dev, n)[name]
+        cap = Captured(name, lambda k: make(kind), run)
+        what = f"{name} n={n} {kind}"
+        eager = time_line(card, f"graph eager {what}, {GRAPH_ROW} calls in "
+                          "a row", time_ms(lambda: run(cap.static),
+                                           reps=GRAPH_REPS, calls=GRAPH_ROW))
+        replay = time_line(card, f"graph replay {what}, {GRAPH_ROW} "
+                           "replays in a row", time_ms(
+                               cap.graph.replay, reps=GRAPH_REPS,
+                               calls=GRAPH_ROW))
+        print(f"graph {what}: eager / replay = {eager / replay!r}")
+        cap.free()
+
+
+def graph_path(dev, card: str) -> None:
+    """The graph phase: every op of the capture list captured once into a
+    CUDA graph and replayed on random, nondecreasing, nonincreasing and
+    all-equal inputs (kth_value also on a new rank), each replay bit for
+    bit the eager call; the eager call made under
+    set_sync_debug_mode("error") first; the hybrid refusing capture; the
+    times of eager calls and replays; the flagship entry's idle share
+    under replay."""
+    for n in (N, RAGGED):
+        for name, (make, run, ref) in main_graph_ops(dev, n).items():
+            cap = Captured(f"{name} n={n}", make, run)
+            cap.replay_checks(GRAPH_KINDS, ref)
+            cap.free()
+    for name, (make, run) in other_graph_ops(dev).items():
+        cap = Captured(f"{name} n={GRAPH_N}", make, run)
+        kinds = GRAPH_KINDS
+        if name.startswith("kth_value"):
+            new_rank = dict(make("random"), r=torch.full(
+                (), GRAPH_N - 7, dtype=torch.int32, device=dev))
+            kinds += (("random, another rank", new_rank),)
+        cap.replay_checks(kinds)
+        cap.free()
+    keys = cwords(torch.Generator(device=dev).manual_seed(SEED + 53),
+                  GRAPH_N, dev).view(torch.uint32)
+    graph = torch.cuda.CUDAGraph()
+    refused = None
+    try:
+        with torch.cuda.graph(graph):
+            sortx_torch.sort(keys, config=HYBRID)
+    except RuntimeError as e:
+        refused = str(e)
+    check(refused is not None and "hybrid" in refused,
+          f"the hybrid engine refuses capture: {refused!r}")
+    del graph
+    graph_timings(dev, card)
+    for name, kind in (("entry", "random"), ("sort u32", "nondecreasing")):
+        make, run, _ = main_graph_ops(dev, N)[name]
+        cap = Captured(name, lambda k: make(kind), run)
+        traced_idle_share(card, f"{name} n={N} {kind}, replayed from a "
+                          "CUDA graph", cap.graph.replay)
+        cap.free()
 
 
 # --- the distributed layer ----------------------------------------------
@@ -2683,6 +3101,8 @@ def main() -> None:
     out_of_core_checks(dev, card)
     idle_share(dev, card)
     took("runtime and out-of-core path")
+    graph_path(dev, card)
+    took("graph")
     for name, c in dist_path(dev, card).items():
         if name in NETWORK + ("scan",):
             counts[name] += c

@@ -93,13 +93,34 @@
 // the per-layer kernels (one barrier per layer over shared memory),
 // which take every L >= 1.
 //
+// Every K1-K3 launch takes `skip`, a device pointer to one int or null:
+// each CTA reads it first and returns at once where it is nonzero, so a
+// pass runs or not on a flag the device computed (the reference's
+// lax.cond around its network, sortx/ops/sort_pallas.py:343-350 and
+// :442-445), with no read on the host, and a sort can be captured in a
+// CUDA graph and replayed on ordered and unordered inputs alike.
+//
+// K8, reverse_kernel, is that branch's jnp.flip (sort_pallas.py:349):
+// where the order flags (ops/bitonic.py reverse_ordered) say
+// nonincreasing and not nondecreasing, it writes the input reversed over
+// the skipped network's output; otherwise every CTA returns at once. It
+// is bound by bytes: one read and one write of each word, coalesced on
+// both sides (consecutive threads take consecutive outputs and the
+// inputs just below one another), 4 loads in flight a thread.
+//
 // C entries return cudaGetLastError() (or the first error met) and
 // launch on the stream given; they allocate nothing and do not sync.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
+
+// Is this pass skipped on the device (see the notes above)?
+__device__ __forceinline__ bool skipped(const int* skip) {
+  return skip != nullptr && *skip != 0;
+}
 
 // a < b on the first NK words, unsigned, lexicographic; no branch.
 template <int NK>
@@ -363,8 +384,10 @@ constexpr int design_blocks(int ns, int log_e, bool tail) {
 template <int NS, int NK, int LOG_E>
 __global__ void __launch_bounds__(design_threads(NS, LOG_E),
                                   design_blocks(NS, LOG_E, false))
-    bitonic_block_kernel(uint32_t* __restrict__ x, long long stride,
+    bitonic_block_kernel(uint32_t* __restrict__ x,
+                         const int* __restrict__ skip, long long stride,
                          int log_block, int row_log) {
+  if (skipped(skip)) return;
   constexpr int E = 1 << LOG_E;
   extern __shared__ uint4 smem[];
   uint32_t* sm = reinterpret_cast<uint32_t*>(smem);
@@ -403,8 +426,10 @@ __global__ void __launch_bounds__(design_threads(NS, LOG_E),
 template <int NS, int NK, int LOG_E>
 __global__ void __launch_bounds__(design_threads(NS, LOG_E),
                                   design_blocks(NS, LOG_E, true))
-    bitonic_tail_kernel(uint32_t* __restrict__ x, long long stride,
+    bitonic_tail_kernel(uint32_t* __restrict__ x,
+                        const int* __restrict__ skip, long long stride,
                         int log_block, int s, int force_asc) {
+  if (skipped(skip)) return;
   constexpr int E = 1 << LOG_E;
   extern __shared__ uint4 smem[];
   uint32_t* sm = reinterpret_cast<uint32_t*>(smem);
@@ -495,8 +520,11 @@ __device__ __forceinline__ void store_block(const uint32_t* sm,
 // K1 layer by layer.
 template <int NS, int NK>
 __global__ void __launch_bounds__(1024)
-    bitonic_block_layers_kernel(uint32_t* __restrict__ x, long long stride,
-                                int log_block, int row_log) {
+    bitonic_block_layers_kernel(uint32_t* __restrict__ x,
+                                const int* __restrict__ skip,
+                                long long stride, int log_block,
+                                int row_log) {
+  if (skipped(skip)) return;
   extern __shared__ uint4 smem[];
   uint32_t* sm = reinterpret_cast<uint32_t*>(smem);
   const int len = 1 << log_block;
@@ -514,8 +542,11 @@ __global__ void __launch_bounds__(1024)
 // K2 layer by layer.
 template <int NS, int NK>
 __global__ void __launch_bounds__(1024)
-    bitonic_tail_layers_kernel(uint32_t* __restrict__ x, long long stride,
-                               int log_block, int s, int force_asc) {
+    bitonic_tail_layers_kernel(uint32_t* __restrict__ x,
+                               const int* __restrict__ skip,
+                               long long stride, int log_block, int s,
+                               int force_asc) {
+  if (skipped(skip)) return;
   extern __shared__ uint4 smem[];
   uint32_t* sm = reinterpret_cast<uint32_t*>(smem);
   const int len = 1 << log_block;
@@ -532,9 +563,11 @@ __global__ void __launch_bounds__(1024)
 // inserted at bit j_lo; they stay in registers for all F layers.
 template <int NS, int NK, int F>
 __global__ void __launch_bounds__(256)
-    bitonic_global_kernel(uint32_t* __restrict__ x, long long stride,
+    bitonic_global_kernel(uint32_t* __restrict__ x,
+                          const int* __restrict__ skip, long long stride,
                           long long n_groups, int s, int j_lo,
                           bool force_asc) {
+  if (skipped(skip)) return;
   constexpr int R = 1 << F;
   const long long g =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -580,6 +613,35 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// K8: out[i] = src[n - 1 - i] where the order flags are exactly
+// nonincreasing (bit 1 without bit 0; all-equal words need no move).
+constexpr int kRevThreads = 256;
+constexpr int kRevUnroll = 4;
+
+__global__ void __launch_bounds__(kRevThreads)
+    reverse_kernel(const int* __restrict__ flags,
+                   const uint32_t* __restrict__ src,
+                   uint32_t* __restrict__ out, long long n) {
+  if ((*flags & 3) != 2) return;
+  const long long step =
+      static_cast<long long>(gridDim.x) * kRevThreads * kRevUnroll;
+  for (long long i0 = static_cast<long long>(blockIdx.x) * kRevThreads *
+                          kRevUnroll + threadIdx.x;
+       i0 < n; i0 += step) {
+    uint32_t v[kRevUnroll];
+#pragma unroll
+    for (int u = 0; u < kRevUnroll; ++u) {
+      const long long i = i0 + u * kRevThreads;
+      if (i < n) v[u] = src[n - 1 - i];
+    }
+#pragma unroll
+    for (int u = 0; u < kRevUnroll; ++u) {
+      const long long i = i0 + u * kRevThreads;
+      if (i < n) out[i] = v[u];
+    }
+  }
+}
+
 // The narrow stream sets, which also run rows mode and forced K2
 // (ops/bitonic.py NARROW_SETS).
 constexpr bool narrow(int ns, int nk) { return ns <= 4 && nk <= 2; }
@@ -616,9 +678,9 @@ cudaError_t allow_smem(Kernel kernel, int bytes, unsigned long long* done) {
 // all NS streams of a block in shared memory.
 template <int NS, typename Kernel, typename... Args>
 cudaError_t launch_block(Kernel kernel, unsigned long long* done, int smem_max,
-                         int threads, uint32_t* x, long long ext,
-                         long long stride, int log_block, cudaStream_t stream,
-                         Args... args) {
+                         int threads, uint32_t* x, const int* skip,
+                         long long ext, long long stride, int log_block,
+                         cudaStream_t stream, Args... args) {
   const long long len = 1LL << log_block;
   const long long blocks = ext >> log_block;
   const long long smem = static_cast<long long>(sizeof(uint32_t)) * NS * len;
@@ -628,7 +690,7 @@ cudaError_t launch_block(Kernel kernel, unsigned long long* done, int smem_max,
   const cudaError_t err = allow_smem(kernel, smem_max, done);
   if (err != cudaSuccess) return err;
   kernel<<<static_cast<unsigned>(blocks), threads, static_cast<int>(smem),
-           stream>>>(x, stride, log_block, args...);
+           stream>>>(x, skip, stride, log_block, args...);
   return cudaGetLastError();
 }
 
@@ -640,73 +702,77 @@ inline bool aligned16(const uint32_t* x, long long stride) {
 // K1 (args: row_log) or K2 (args: s, force_asc) of the register design
 // with 2^LOG_E elements a thread.
 template <int NS, int NK, int LOG_E, bool TAIL, typename... Args>
-cudaError_t launch_design(uint32_t* x, long long ext, long long stride,
-                          int log_block, cudaStream_t stream, Args... args) {
+cudaError_t launch_design(uint32_t* x, const int* skip, long long ext,
+                          long long stride, int log_block,
+                          cudaStream_t stream, Args... args) {
   static unsigned long long done = 0;
   const int threads = 1 << (log_block - LOG_E);
   if constexpr (TAIL) {
     return launch_block<NS>(bitonic_tail_kernel<NS, NK, LOG_E>, &done,
-                            design_smem(NS, LOG_E), threads, x, ext, stride,
-                            log_block, stream, args...);
+                            design_smem(NS, LOG_E), threads, x, skip, ext,
+                            stride, log_block, stream, args...);
   } else {
     return launch_block<NS>(bitonic_block_kernel<NS, NK, LOG_E>, &done,
-                            design_smem(NS, LOG_E), threads, x, ext, stride,
-                            log_block, stream, args...);
+                            design_smem(NS, LOG_E), threads, x, skip, ext,
+                            stride, log_block, stream, args...);
   }
 }
 
 // K1 or K2 for a block 2^L: the register design where elems_log gives
 // it an e and the streams are aligned, else the per-layer kernel.
 template <int NS, int NK, bool TAIL, typename... Args>
-cudaError_t launch_k12(uint32_t* x, long long ext, long long stride,
-                       int log_block, cudaStream_t stream, Args... args) {
+cudaError_t launch_k12(uint32_t* x, const int* skip, long long ext,
+                       long long stride, int log_block, cudaStream_t stream,
+                       Args... args) {
   constexpr int E_SMALL = NS > 4 ? 3 : 4;   // below a 2^14 block
   const int e = aligned16(x, stride) ? elems_log(NS, log_block) : 0;
   if (e == E_SMALL) {
-    return launch_design<NS, NK, E_SMALL, TAIL>(x, ext, stride, log_block,
-                                                stream, args...);
+    return launch_design<NS, NK, E_SMALL, TAIL>(x, skip, ext, stride,
+                                                log_block, stream, args...);
   }
   if constexpr (NS == 1) {
     if (e == E_BIG) {
-      return launch_design<NS, NK, E_BIG, TAIL>(x, ext, stride, log_block,
-                                                stream, args...);
+      return launch_design<NS, NK, E_BIG, TAIL>(x, skip, ext, stride,
+                                                log_block, stream, args...);
     }
   }
   static unsigned long long done = 0;
   const int threads = log_block > 10 ? 1024 : 1 << (log_block - 1);
   if constexpr (TAIL) {
     return launch_block<NS>(bitonic_tail_layers_kernel<NS, NK>, &done,
-                            SMEM_MAX, threads, x, ext, stride, log_block,
-                            stream, args...);
+                            SMEM_MAX, threads, x, skip, ext, stride,
+                            log_block, stream, args...);
   } else {
     return launch_block<NS>(bitonic_block_layers_kernel<NS, NK>, &done,
-                            SMEM_MAX, threads, x, ext, stride, log_block,
-                            stream, args...);
+                            SMEM_MAX, threads, x, skip, ext, stride,
+                            log_block, stream, args...);
   }
 }
 
 // K1, in rows mode if row_log > 0 (the narrow sets only).
 template <int NS, int NK>
-cudaError_t launch_k1(uint32_t* x, long long ext, long long stride,
-                      int log_block, int row_log, cudaStream_t stream) {
+cudaError_t launch_k1(uint32_t* x, const int* skip, long long ext,
+                      long long stride, int log_block, int row_log,
+                      cudaStream_t stream) {
   if (row_log > 0 && !narrow(NS, NK)) return cudaErrorInvalidValue;
-  return launch_k12<NS, NK, false>(x, ext, stride, log_block, stream, row_log);
+  return launch_k12<NS, NK, false>(x, skip, ext, stride, log_block, stream,
+                                   row_log);
 }
 
 // K2 at stage s, ascending everywhere under force_asc (the narrow sets
 // only).
 template <int NS, int NK>
-cudaError_t launch_k2(uint32_t* x, long long ext, long long stride,
-                      int log_block, int s, int force_asc,
+cudaError_t launch_k2(uint32_t* x, const int* skip, long long ext,
+                      long long stride, int log_block, int s, int force_asc,
                       cudaStream_t stream) {
   if (force_asc && !narrow(NS, NK)) return cudaErrorInvalidValue;
-  return launch_k12<NS, NK, true>(x, ext, stride, log_block, stream, s,
+  return launch_k12<NS, NK, true>(x, skip, ext, stride, log_block, stream, s,
                                   force_asc);
 }
 
 template <int NS, int NK, int F>
-cudaError_t launch_global_f(uint32_t* x, long long ext, long long stride,
-                            int s, int j_lo, bool force_asc,
+cudaError_t launch_global_f(uint32_t* x, const int* skip, long long ext,
+                            long long stride, int s, int j_lo, bool force_asc,
                             cudaStream_t stream) {
   const long long n_groups = ext >> F;
   if (n_groups <= 0 || (ext & ((1LL << (j_lo + F)) - 1)) != 0) {
@@ -716,23 +782,27 @@ cudaError_t launch_global_f(uint32_t* x, long long ext, long long stride,
   const long long blocks = (n_groups + threads - 1) / threads;
   bitonic_global_kernel<NS, NK, F>
       <<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-          x, stride, n_groups, s, j_lo, force_asc);
+          x, skip, stride, n_groups, s, j_lo, force_asc);
   return cudaGetLastError();
 }
 
 template <int NS, int NK>
-cudaError_t launch_global(uint32_t* x, long long ext, long long stride, int s,
-                          int j_hi, int j_lo, bool asc, cudaStream_t stream) {
+cudaError_t launch_global(uint32_t* x, const int* skip, long long ext,
+                          long long stride, int s, int j_hi, int j_lo,
+                          bool asc, cudaStream_t stream) {
   switch (j_hi - j_lo + 1) {
     case 1:
-      return launch_global_f<NS, NK, 1>(x, ext, stride, s, j_lo, asc, stream);
+      return launch_global_f<NS, NK, 1>(x, skip, ext, stride, s, j_lo, asc,
+                                        stream);
     case 2:
-      return launch_global_f<NS, NK, 2>(x, ext, stride, s, j_lo, asc, stream);
+      return launch_global_f<NS, NK, 2>(x, skip, ext, stride, s, j_lo, asc,
+                                        stream);
     case 3:
-      return launch_global_f<NS, NK, 3>(x, ext, stride, s, j_lo, asc, stream);
+      return launch_global_f<NS, NK, 3>(x, skip, ext, stride, s, j_lo, asc,
+                                        stream);
     case 4:
       if constexpr (f_max(NS) >= 4) {
-        return launch_global_f<NS, NK, 4>(x, ext, stride, s, j_lo, asc,
+        return launch_global_f<NS, NK, 4>(x, skip, ext, stride, s, j_lo, asc,
                                           stream);
       }
       return cudaErrorInvalidValue;
@@ -763,43 +833,63 @@ cudaError_t launch_global(uint32_t* x, long long ext, long long stride, int s,
     default: return cudaErrorInvalidValue;                     \
   }
 
-extern "C" int sortx_bitonic_block(void* x, long long ext, long long stride,
-                                   int ns, int nk, int log_block, int row_log,
-                                   void* stream) {
+extern "C" int sortx_bitonic_block(void* x, const void* skip, long long ext,
+                                   long long stride, int ns, int nk,
+                                   int log_block, int row_log, void* stream) {
   if (log_block < 1 || log_block > 30 || row_log < 0 || row_log > log_block) {
     return cudaErrorInvalidValue;
   }
   auto* p = static_cast<uint32_t*>(x);
+  const auto* sk = static_cast<const int*>(skip);
   auto st = static_cast<cudaStream_t>(stream);
   SORTX_DISPATCH_STREAMS(ns, nk,
-                         launch_k1<NS, NK>(p, ext, stride, log_block, row_log,
-                                           st))
+                         launch_k1<NS, NK>(p, sk, ext, stride, log_block,
+                                           row_log, st))
 }
 
-extern "C" int sortx_bitonic_tail(void* x, long long ext, long long stride,
-                                  int ns, int nk, int log_block, int s,
-                                  int force_asc, void* stream) {
+extern "C" int sortx_bitonic_tail(void* x, const void* skip, long long ext,
+                                  long long stride, int ns, int nk,
+                                  int log_block, int s, int force_asc,
+                                  void* stream) {
   // s == L only for the merge stage, which runs ascending
   if (log_block < 1 || log_block > 30 || s < log_block ||
       (s == log_block && !force_asc)) {
     return cudaErrorInvalidValue;
   }
   auto* p = static_cast<uint32_t*>(x);
+  const auto* sk = static_cast<const int*>(skip);
   auto st = static_cast<cudaStream_t>(stream);
   SORTX_DISPATCH_STREAMS(ns, nk,
-                         launch_k2<NS, NK>(p, ext, stride, log_block, s,
+                         launch_k2<NS, NK>(p, sk, ext, stride, log_block, s,
                                            force_asc != 0 ? 1 : 0, st))
 }
 
-extern "C" int sortx_bitonic_global(void* x, long long ext, long long stride,
-                                    int ns, int nk, int s, int j_hi, int j_lo,
-                                    int force_asc, void* stream) {
+extern "C" int sortx_bitonic_global(void* x, const void* skip, long long ext,
+                                    long long stride, int ns, int nk, int s,
+                                    int j_hi, int j_lo, int force_asc,
+                                    void* stream) {
   if (j_hi >= s || j_lo > j_hi) return cudaErrorInvalidValue;
   auto* p = static_cast<uint32_t*>(x);
+  const auto* sk = static_cast<const int*>(skip);
   auto st = static_cast<cudaStream_t>(stream);
   SORTX_DISPATCH_STREAMS(ns, nk,
-                         launch_global<NS, NK>(p, ext, stride, s, j_hi, j_lo,
-                                               force_asc != 0, st))
+                         launch_global<NS, NK>(p, sk, ext, stride, s, j_hi,
+                                               j_lo, force_asc != 0, st))
+}
+
+// K8 over n words: src and out do not overlap; flags is one int on the
+// card (ops/bitonic.py reverse_ordered).
+extern "C" int sortx_reverse_ordered(const void* flags, const void* src,
+                                     void* out, long long n, void* stream) {
+  if (n <= 0 || flags == nullptr) return cudaErrorInvalidValue;
+  const long long per_block = static_cast<long long>(kRevThreads) * kRevUnroll;
+  // enough CTAs to fill the card, each walking the rest of the words
+  const long long blocks = std::min((n + per_block - 1) / per_block, 132LL * 8);
+  reverse_kernel<<<static_cast<unsigned>(blocks), kRevThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(flags), static_cast<const uint32_t*>(src),
+      static_cast<uint32_t*>(out), n);
+  return cudaGetLastError();
 }
 
 // Shared by every C entry of the library (the scan entry included).

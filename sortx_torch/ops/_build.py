@@ -52,12 +52,14 @@ launches: collections.Counter = collections.Counter()
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry -> argument types; every entry returns a cudaError_t as int.
 _ENTRIES = {
-    # (x, ext, stride, ns, nk, log_block, row_log, stream)
-    "sortx_bitonic_block": (_P, _L, _L, _I, _I, _I, _I, _P),
-    # (x, ext, stride, ns, nk, log_block, s, force_asc, stream)
-    "sortx_bitonic_tail": (_P, _L, _L, _I, _I, _I, _I, _I, _P),
-    # (x, ext, stride, ns, nk, s, j_hi, j_lo, force_asc, stream)
-    "sortx_bitonic_global": (_P, _L, _L, _I, _I, _I, _I, _I, _I, _P),
+    # (x, skip, ext, stride, ns, nk, log_block, row_log, stream)
+    "sortx_bitonic_block": (_P, _P, _L, _L, _I, _I, _I, _I, _P),
+    # (x, skip, ext, stride, ns, nk, log_block, s, force_asc, stream)
+    "sortx_bitonic_tail": (_P, _P, _L, _L, _I, _I, _I, _I, _I, _P),
+    # (x, skip, ext, stride, ns, nk, s, j_hi, j_lo, force_asc, stream)
+    "sortx_bitonic_global": (_P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _P),
+    # (flags, src, out, n, stream)
+    "sortx_reverse_ordered": (_P, _P, _P, _L, _P),
     # (x, out, scratch, total, n, tile, inclusive, stream)
     "sortx_scan": (_P, _P, _P, _P, _L, _L, _I, _P),
     # (x, out, prefix, n, tile, shift, radix, per_tile, stream)

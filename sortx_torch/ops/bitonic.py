@@ -44,6 +44,19 @@ last stage s = log2 n over a bitonic sequence, ascending: K3 passes for
 layers s-1..L and one K2 pass, which may then take s == L
 (:func:`merge_plan`).
 
+``skip`` predicates a pass on the device, as the reference's
+``lax.cond`` around its network: a 1-element int32 tensor on the
+buffer's device (or None), read by every CTA first. Where it is
+nonzero the pass returns at once and ``x`` keeps its words, with no
+host read, so a sort of an ordered input can be captured in a CUDA
+graph and replayed on any input. The plain versions take the same flag
+and keep ``x`` the same way.
+
+:func:`reverse_ordered` (K8, the same source) is the reference's
+``jnp.flip`` branch of a keys-only sort: it writes a nonincreasing input
+reversed over the skipped network's output, and returns at once for
+any other input.
+
 Stream sets (:data:`STREAM_SETS`): the narrow sets, 1-4 streams with
 1-2 keys, run every mode; the wide sets of the 64-bit, argsort and
 lexsort paths run the full network only. Above 4 streams a K3 pass
@@ -59,13 +72,14 @@ import torch
 from ..config import LOG_BLOCK_MAX
 from ..runtime.launcher import profiled
 from ..utils.math import cdiv
-from ..utils.words import ordered
+from ..utils.words import NONDECREASING, NONINCREASING, ordered
 from ._build import launch, on_card
 
 __all__ = ["bitonic_sort_streams", "bitonic_merge_streams", "pass_plan",
            "merge_plan", "bitonic_block", "bitonic_tail", "bitonic_global",
-           "block_plain", "tail_plain", "global_plain", "block_log", "f_max",
-           "KERNELS", "STREAM_SETS", "NARROW_SETS", "BLOCK_LOG"]
+           "block_plain", "tail_plain", "global_plain", "reverse_ordered",
+           "reverse_plain", "block_log", "f_max", "KERNELS", "STREAM_SETS",
+           "NARROW_SETS", "BLOCK_LOG"]
 
 # (streams, keys) pairs the kernels take. The narrow sets serve every
 # mode; the wide ones the full network (64-bit keys and values, argsort,
@@ -221,33 +235,65 @@ def _layer(x: torch.Tensor, ext: int, num_keys: int, s: int, j: int,
     b.copy_(nb)
 
 
+def _layers(x, ext: int, num_keys: int, layers, skip) -> None:
+    """Run the (s, j, asc) layers over x[:, :ext] in place; where the
+    1-element tensor ``skip`` is nonzero x keeps its words (a device-side
+    select, no host read)."""
+    before = None if skip is None else x[:, :ext].clone()
+    for s, j, asc in layers:
+        _layer(x, ext, num_keys, s, j, asc)
+    if before is not None:
+        x[:, :ext] = torch.where(skip.view(()) != 0, before, x[:, :ext])
+
+
 def block_plain(x, ext: int, num_keys: int, log_block: int,
-                row_log: int = 0) -> None:
+                row_log: int = 0, skip=None) -> None:
     """Plain version of K1: stages 1..log_block over x[:, :ext], or with
     ``row_log`` stages 1..row_log, the last one ascending."""
-    for s in range(1, (row_log or log_block) + 1):
-        for j in range(s - 1, -1, -1):
-            _layer(x, ext, num_keys, s, j, s == row_log)
+    top = row_log or log_block
+    _layers(x, ext, num_keys, [(s, j, s == row_log)
+                               for s in range(1, top + 1)
+                               for j in range(s - 1, -1, -1)], skip)
 
 
 def tail_plain(x, ext: int, num_keys: int, log_block: int, s: int,
-               force_asc: bool = False) -> None:
+               force_asc: bool = False, skip=None) -> None:
     """Plain version of K2: layers log_block-1..0 of stage s."""
-    for j in range(log_block - 1, -1, -1):
-        _layer(x, ext, num_keys, s, j, force_asc)
+    _layers(x, ext, num_keys,
+            [(s, j, force_asc) for j in range(log_block - 1, -1, -1)], skip)
 
 
 def global_plain(x, ext: int, num_keys: int, s: int, j_hi: int,
-                 j_lo: int, force_asc: bool = False) -> None:
+                 j_lo: int, force_asc: bool = False, skip=None) -> None:
     """Plain version of K3: layers j_hi..j_lo of stage s."""
-    for j in range(j_hi, j_lo - 1, -1):
-        _layer(x, ext, num_keys, s, j, force_asc)
+    _layers(x, ext, num_keys,
+            [(s, j, force_asc) for j in range(j_hi, j_lo - 1, -1)], skip)
+
+
+def reverse_plain(src: torch.Tensor, out: torch.Tensor,
+                  flags: torch.Tensor) -> None:
+    """Plain version of K8: out = src reversed where ``flags`` (a
+    1-element int32 tensor of ``utils.words.order_flags``) says
+    nonincreasing and not nondecreasing; else out keeps its words."""
+    take = (flags.view(()) & (NONDECREASING | NONINCREASING)) == NONINCREASING
+    out.copy_(torch.where(take, src.flip(0), out))
 
 
 # --- kernel wrappers -----------------------------------------------------
 
+def _check_flag(flag, device, what: str) -> None:
+    if flag is not None and (flag.dtype != torch.int32 or flag.numel() != 1
+                             or flag.device != device):
+        raise ValueError(f"{what} must be one int32 element on the "
+                         "buffer's device")
+
+
+def _ptr(flag):
+    return None if flag is None else flag.data_ptr()
+
+
 def _check(x: torch.Tensor, ext: int, num_keys: int, granule: int,
-           narrow: bool = False) -> None:
+           narrow: bool = False, skip=None) -> None:
     """Validate the buffer and the stream set; ``narrow`` for the modes
     only the narrow sets run (rows mode, forced K2)."""
     if (x.dim() != 2 or x.dtype != torch.int32 or x.stride(1) != 1
@@ -261,61 +307,91 @@ def _check(x: torch.Tensor, ext: int, num_keys: int, granule: int,
     if not 0 < ext <= x.shape[1] or ext % granule:
         raise ValueError(f"extent {ext} is not a positive multiple of "
                          f"{granule} within {x.shape[1]}")
+    _check_flag(skip, x.device, "skip")
 
 
 @profiled("bitonic_block", level="kernel")
 def bitonic_block(x: torch.Tensor, ext: int, num_keys: int,
-                  log_block: int, row_log: int = 0) -> torch.Tensor:
+                  log_block: int, row_log: int = 0, *,
+                  skip: torch.Tensor | None = None) -> torch.Tensor:
     """K1: stages 1..log_block on every 2^log_block block of x[:, :ext];
-    with ``row_log`` <= log_block, stages 1..row_log, the last ascending."""
-    _check(x, ext, num_keys, 1 << log_block, narrow=row_log > 0)
+    with ``row_log`` <= log_block, stages 1..row_log, the last ascending.
+    Nothing moves where ``skip`` is set (see the module notes)."""
+    _check(x, ext, num_keys, 1 << log_block, narrow=row_log > 0, skip=skip)
     if not 0 <= row_log <= log_block:
         raise ValueError(f"row_log {row_log} is not within the block "
                          f"2^{log_block}")
     if on_card(x):
         launch("bitonic_block", "sortx_bitonic_block", x.device,
-               x.data_ptr(), ext, x.stride(0), x.shape[0], num_keys,
-               log_block, row_log)
+               x.data_ptr(), _ptr(skip), ext, x.stride(0), x.shape[0],
+               num_keys, log_block, row_log)
     else:
-        block_plain(x, ext, num_keys, log_block, row_log)
+        block_plain(x, ext, num_keys, log_block, row_log, skip)
     return x
 
 
 @profiled("bitonic_tail", level="kernel")
 def bitonic_tail(x: torch.Tensor, ext: int, num_keys: int, log_block: int,
-                 s: int, force_asc: bool = False) -> torch.Tensor:
+                 s: int, force_asc: bool = False, *,
+                 skip: torch.Tensor | None = None) -> torch.Tensor:
     """K2: layers log_block-1..0 of stage s > log_block over x[:, :ext];
     under ``force_asc`` (rows mode, the merge stage) also s == log_block."""
-    _check(x, ext, num_keys, 1 << log_block, narrow=force_asc)
+    _check(x, ext, num_keys, 1 << log_block, narrow=force_asc, skip=skip)
     if s < log_block or (s == log_block and not force_asc):
         raise ValueError(f"stage {s} is inside the block 2^{log_block}")
     if on_card(x):
         launch("bitonic_tail", "sortx_bitonic_tail", x.device,
-               x.data_ptr(), ext, x.stride(0), x.shape[0], num_keys,
-               log_block, s, int(force_asc))
+               x.data_ptr(), _ptr(skip), ext, x.stride(0), x.shape[0],
+               num_keys, log_block, s, int(force_asc))
     else:
-        tail_plain(x, ext, num_keys, log_block, s, force_asc)
+        tail_plain(x, ext, num_keys, log_block, s, force_asc, skip)
     return x
 
 
 @profiled("bitonic_global", level="kernel")
 def bitonic_global(x: torch.Tensor, ext: int, num_keys: int, s: int,
-                   j_hi: int, j_lo: int,
-                   force_asc: bool = False) -> torch.Tensor:
+                   j_hi: int, j_lo: int, force_asc: bool = False, *,
+                   skip: torch.Tensor | None = None) -> torch.Tensor:
     """K3: layers j_hi..j_lo (at most f_max(ns)) of stage s over
     x[:, :ext]."""
-    _check(x, ext, num_keys, 1 << (j_hi + 1))
+    _check(x, ext, num_keys, 1 << (j_hi + 1), skip=skip)
     fm = f_max(x.shape[0])
     if not 0 <= j_lo <= j_hi < s or j_hi - j_lo >= fm:
         raise ValueError(f"layers {j_hi}..{j_lo} of stage {s}: need "
                          f"j_lo <= j_hi < s and at most {fm} layers")
     if on_card(x):
         launch("bitonic_global", "sortx_bitonic_global", x.device,
-               x.data_ptr(), ext, x.stride(0), x.shape[0], num_keys, s,
-               j_hi, j_lo, int(force_asc))
+               x.data_ptr(), _ptr(skip), ext, x.stride(0), x.shape[0],
+               num_keys, s, j_hi, j_lo, int(force_asc))
     else:
-        global_plain(x, ext, num_keys, s, j_hi, j_lo, force_asc)
+        global_plain(x, ext, num_keys, s, j_hi, j_lo, force_asc, skip)
     return x
+
+
+@profiled("reverse", level="kernel")
+def reverse_ordered(src: torch.Tensor, out: torch.Tensor,
+                    flags: torch.Tensor) -> torch.Tensor:
+    """K8: where ``flags`` (one int32 element of
+    ``utils.words.order_flags`` on the buffers' device) says nonincreasing
+    and not nondecreasing, write ``src`` reversed over ``out``; otherwise
+    leave ``out`` as it is. src and out are contiguous 1-D int32 tensors
+    of one length that do not overlap. Returns out."""
+    if (src.dim() != 1 or src.dtype != torch.int32 or not src.is_contiguous()
+            or out.shape != src.shape or out.dtype != torch.int32
+            or not out.is_contiguous() or out.device != src.device):
+        raise ValueError("reverse_ordered takes two contiguous 1-D int32 "
+                         "tensors of one length on one device")
+    if flags is None:
+        raise ValueError("reverse_ordered needs the order flags")
+    _check_flag(flags, src.device, "flags")
+    if src.shape[0] == 0:
+        return out
+    if on_card(src):
+        launch("reverse", "sortx_reverse_ordered", src.device,
+               flags.data_ptr(), src.data_ptr(), out.data_ptr(), src.shape[0])
+    else:
+        reverse_plain(src, out, flags)
+    return out
 
 
 # --- the whole network ---------------------------------------------------
@@ -395,17 +471,20 @@ def merge_plan(ns: int, n: int, num_keys: int,
 def bitonic_sort_streams(x: torch.Tensor, num_keys: int, *,
                          n_valid: int | None = None,
                          log_block: int = LOG_BLOCK_MAX,
-                         row_log: int | None = None) -> torch.Tensor:
+                         row_log: int | None = None,
+                         skip: torch.Tensor | None = None) -> torch.Tensor:
     """Sort the columns of the (ns, n) int32 buffer ``x`` in place by its
     first ``num_keys`` rows; n must be a power of two, or in rows mode
     (``row_log``) a multiple of 1024 and of the row. Returns ``x``.
 
     ``n_valid``: number of real elements; every column at index >=
     n_valid must be 0xFFFFFFFF in every stream (the callers pad so).
+    ``skip``: every pass returns at once where it is set, so ``x`` comes
+    back as it went in.
     """
     for name, args in pass_plan(*x.shape, num_keys, n_valid, log_block,
                                 row_log):
-        KERNELS[name][0](x, *args)
+        KERNELS[name][0](x, *args, skip=skip)
     return x
 
 

@@ -1,8 +1,10 @@
 """Device-memory admission for single-device sorts.
 
 The byte check under ``sortx/ops/out_of_core.py:check_device_capacity``
-(:187-210), on ``torch.cuda.mem_get_info``, for the port's engines: a
-sort must fit within 90% of the card's memory. The network pads to a
+(:187-210), for the port's engines: a sort must fit within 90% of the
+card's memory, its total as ``torch.cuda.get_device_properties`` gives
+it, read once a device (no memory query per sort, so a sort can be
+captured in a CUDA graph). The network pads to a
 power of two (at least 1024) and holds padded * 4 B * streams * 2
 (:func:`network_bytes`); the hybrid counts its own buffers
 (``ops/sort_hybrid.py:hybrid_bytes``). The reference's public
@@ -10,6 +12,8 @@ power of two (at least 1024) and holds padded * 4 B * streams * 2
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -24,12 +28,18 @@ def network_bytes(n: int, n_streams: int) -> int:
     return padded * 4 * n_streams * 2
 
 
+@functools.cache
+def _total_memory(index: int) -> int:
+    return torch.cuda.get_device_properties(index).total_memory
+
+
 def check_device_bytes(need: int, device: torch.device, what: str) -> None:
     """Raise ``CapacityError`` if ``need`` bytes for ``what`` cannot fit
     on ``device``. Only CUDA devices are checked."""
     if device.type != "cuda":
         return
-    _free, limit = torch.cuda.mem_get_info(device)
+    limit = _total_memory(device.index if device.index is not None
+                          else torch.cuda.current_device())
     if need > int(limit * 0.90):
         raise CapacityError(
             f"{what} needs ~{need / 1e9:.1f} GB of device memory but the "

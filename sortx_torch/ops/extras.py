@@ -32,13 +32,13 @@ import torch
 
 from ..config import Config, default_config, resolve_engine
 from ..runtime.launcher import profiled
-from ..utils.words import int_view, monotone
+from ..utils.words import int_view, order_flags
 from .capacity import check_device_bytes, network_bytes
 from .sort import (_DTYPES64, _check_key_dtype, _check_keys, _order_mask,
                    _resolve_sort_bits, _sort_key, _to_radix_u32,
                    _to_radix_u64, sort_kv)
 from .sort_host import sort_multi_host
-from .sort_network import _bitonic, _iota
+from .sort_network import _bitonic, _iota, presorted
 
 __all__ = ["argsort", "lexsort", "sort_u64", "sort_kv_u64",
            "sort_u64_words", "sort_kv_u64_words"]
@@ -48,13 +48,13 @@ def _use_network(cfg: Config, t: torch.Tensor) -> bool:
     return resolve_engine(cfg, t) == "network"
 
 
-def _network(streams, num_keys: int, what: str):
+def _network(streams, num_keys: int, what: str, skip=None):
     """Run the network over the streams (int32 words), with the capacity
-    check; returns all of them, sorted."""
+    check; returns all of them, sorted (as they are, where ``skip``)."""
     n = streams[0].shape[0]
     check_device_bytes(network_bytes(n, len(streams)), streams[0].device,
                        f"{what} of n={n}")
-    return _bitonic(tuple(streams), num_keys, n)
+    return _bitonic(tuple(streams), num_keys, n, skip)
 
 
 def sort_u64_words(h: torch.Tensor, l: torch.Tensor, descending: bool,
@@ -169,9 +169,11 @@ def argsort(keys: torch.Tensor, sort_bits: int | None = None, *,
         masked = _sort_key(k, sort_bits)
         if descending:
             masked = masked ^ _order_mask(sort_bits)
-        if n <= 1 or monotone(masked)[0]:
+        if n <= 1:
             return idx
-        return _network((masked, idx), 2, "argsort")[1]
+        # an ordered key skips the network on the device: idx comes back
+        return _network((masked, idx), 2, "argsort",
+                        presorted(order_flags(masked)))[1]
     _, perm = sort_kv(keys, idx.view(torch.uint32), sort_bits,
                       descending=descending, config=cfg)
     return perm.view(torch.int32)

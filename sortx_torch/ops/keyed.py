@@ -123,7 +123,8 @@ def _consecutive_reduce(keys: torch.Tensor, values, size: int, fill_value,
         agg = wrap_i32(torch.where(valid, g[ends] - g[starts], 0)).view(
             values.dtype)
     if fill_value is None:
-        fv = keys_out[(num_runs.clamp(max=size) - 1).clamp(min=0)]
+        # a 1-element index: a 0-d one would read it on the host
+        fv = keys_out[(num_runs.clamp(max=size) - 1).clamp(min=0).view(1)]
     else:
         fv = _fill(keys.dtype, fill_value, dev)
     keys_out = torch.where(valid, keys_out, fv).view(keys.dtype)

@@ -82,7 +82,7 @@ def _merge_network(ka, kb, payloads_a=(), payloads_b=(), *,
 
     def put(t, xa, xb, fill):
         x[t, :na] = xa
-        x[t, na:N - nb] = fill
+        x[t, na:N - nb].fill_(fill)
         x[t, N - nb:] = xb.flip(0)
 
     put(0, ka, kb, FF)

@@ -47,8 +47,11 @@ def histogram_plain(x: torch.Tensor, shift: int, radix: int,
         # the words that do not count go to a slot past the last row
         slot = torch.where((u >> hi_shift) == as_u64(prefix.view(1)), slot,
                            tiles * radix)
-    return torch.bincount(slot, minlength=tiles * radix + 1)[
-        :tiles * radix].view(tiles, radix).to(torch.int32)
+    # a fixed-size table (no bincount, whose length follows the data)
+    counts = torch.zeros(tiles * radix + 1, dtype=torch.int64,
+                         device=x.device)
+    counts.scatter_add_(0, slot, torch.ones_like(slot))
+    return counts[:tiles * radix].view(tiles, radix).to(torch.int32)
 
 
 @profiled("histogram", level="kernel")

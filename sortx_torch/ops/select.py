@@ -44,7 +44,10 @@ def kth_value(keys: torch.Tensor, k, *, config: Config | None = None):
     if isinstance(k, int) and not 0 <= k < n:
         raise ValueError(f"k={k} out of range for n={n}")
     w, undo = _to_radix_u32(keys.contiguous())
-    rank = torch.as_tensor(k, dtype=torch.int64, device=keys.device)
+    # an int fills the rank on the card (a copy from the host would sync)
+    rank = (torch.full((), k, dtype=torch.int64, device=keys.device)
+            if isinstance(k, int) else
+            torch.as_tensor(k, dtype=torch.int64, device=keys.device))
     prefix = torch.zeros((), dtype=torch.int64, device=keys.device)
     for shift in (24, 16, 8, 0):
         # only the words whose bytes above this round equal the chosen
@@ -52,10 +55,12 @@ def kth_value(keys: torch.Tensor, k, *, config: Config | None = None):
         hist = digit_counts(w, 8, shift, cfg,
                             prefix=prefix.to(torch.int32).view(1))
         cum = torch.cumsum(hist, 0, dtype=torch.int64)
-        b = torch.searchsorted(cum, rank.view(1), right=True)[0]
+        # b, rank and prefix stay 1-element tensors: a 0-d index would
+        # be read on the host
+        b = torch.searchsorted(cum, rank.view(1), right=True)
         rank = rank - torch.where(b > 0, cum[(b - 1).clamp(min=0)], 0)
         prefix = (prefix << 8) | b
-    return undo(wrap_i32(prefix))
+    return undo(wrap_i32(prefix.view(())))
 
 
 @profiled("median")

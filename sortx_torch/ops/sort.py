@@ -17,10 +17,18 @@ Engines: "network" (the bitonic network), "hybrid" (the sample sort,
 always stable; 64-bit values take the host engine, as ``sortx`` sends
 them to XLA), "host" (``torch.sort``); see ``config.py``.
 
-Ordered inputs skip the engines: keys whose sort key is already
-nondecreasing come back as they are, and a full-width keys-only input
-that is nonincreasing only flips (equal keys are indistinguishable).
-One host sync reads both flags.
+Ordered inputs take the reference's short cuts (``lax.cond`` in
+``sortx/ops/sort_pallas.py:343-350, 442-445``): keys whose sort key is
+already nondecreasing come back as they are, and a full-width keys-only
+input that is nonincreasing comes back reversed (equal keys are
+indistinguishable). On the network engine they are branches on the
+device: the order flags (``utils.words.order_flags``) stay on the card
+and predicate the network's passes and K8, so ``sort`` and ``sort_kv``
+read nothing on the host and can be captured in a CUDA graph. The
+hybrid engine reads the flags on the host, as it reads its bucket
+totals, and refuses to run under capture. The host engine takes no short
+cut: a stable sort of ordered keys is the identity or, for keys alone,
+the reversal, so its bits are the same.
 """
 
 from __future__ import annotations
@@ -29,10 +37,12 @@ import torch
 
 from ..config import Config, default_config, resolve_engine
 from ..runtime.launcher import profiled
-from ..utils.words import SIGN, join64, monotone, split64
+from ..utils.words import (NONDECREASING, NONINCREASING, SIGN, join64,
+                           order_flags, split64)
 from .capacity import check_device_bytes, network_bytes
 from .sort_host import sort_host, sort_kv_host
-from .sort_hybrid import hybrid_bytes, sort_hybrid, sort_kv_hybrid
+from .sort_hybrid import (hybrid_bytes, refuse_capture, sort_hybrid,
+                          sort_kv_hybrid)
 from .sort_network import network_streams, sort_kv_network, sort_network
 
 __all__ = ["sort", "sort_kv"]
@@ -182,6 +192,13 @@ def _sort_key(k: torch.Tensor, sort_bits: int) -> torch.Tensor:
     return k if sort_bits >= 32 else k & _order_mask(sort_bits)
 
 
+def _order_on_host(k: torch.Tensor, sort_bits: int):
+    """(nondecreasing, nonincreasing) of the sort key, read with one host
+    sync: the hybrid engine's short cuts."""
+    f = int(order_flags(_sort_key(k, sort_bits)))
+    return bool(f & NONDECREASING), bool(f & NONINCREASING)
+
+
 @profiled("sort")
 def sort(keys: torch.Tensor, sort_bits: int | None = None, *,
          descending: bool = False, config: Config | None = None
@@ -206,25 +223,26 @@ def sort(keys: torch.Tensor, sort_bits: int | None = None, *,
     k, undo = _to_radix_u32(keys.contiguous())
     if descending:
         k = k ^ _order_mask(sort_bits)
-    up, down = monotone(_sort_key(k, sort_bits))
-    if up:
-        out = k
-    elif down and sort_bits >= 32:
-        out = k.flip(0)
-    else:
-        engine = resolve_engine(cfg, keys)
-        if engine == "host":
-            out = sort_host(k, sort_bits)
-        elif engine == "hybrid":
+    engine = resolve_engine(cfg, keys)
+    if engine == "host":
+        out = sort_host(k, sort_bits)
+    elif engine == "hybrid":
+        refuse_capture("sort")
+        up, down = _order_on_host(k, sort_bits)
+        if up:
+            out = k
+        elif down and sort_bits >= 32:
+            out = k.flip(0)
+        else:
             check_device_bytes(
                 hybrid_bytes(n, 1 if sort_bits >= 32 else 2, cfg),
                 keys.device, f"hybrid sort of n={n}")
             out = sort_hybrid(k, sort_bits, cfg)
-        else:
-            check_device_bytes(
-                network_bytes(n, network_streams(n, sort_bits, False, True)),
-                keys.device, f"sort of n={n}")
-            out = sort_network(k, sort_bits)
+    else:
+        check_device_bytes(
+            network_bytes(n, network_streams(n, sort_bits, False, True)),
+            keys.device, f"sort of n={n}")
+        out = sort_network(k, sort_bits, order_flags(_sort_key(k, sort_bits)))
     if descending:
         out = out ^ _order_mask(sort_bits)
     return undo(out)
@@ -259,23 +277,27 @@ def sort_kv(keys: torch.Tensor, values: torch.Tensor,
     if descending:
         k = k ^ _order_mask(sort_bits)
     engine = resolve_engine(cfg, keys)
-    if monotone(_sort_key(k, sort_bits))[0]:
-        ks, vs = k, v
-    elif engine == "host" or (engine == "hybrid" and len(v) > 1):
+    if engine == "hybrid":
+        refuse_capture("sort_kv")
+    if engine == "host" or (engine == "hybrid" and len(v) > 1):
         ks, vs = sort_kv_host(k, v, sort_bits)
     elif engine == "hybrid":
-        # always stable, whatever ``stable`` says
-        check_device_bytes(
-            hybrid_bytes(n, 2 if sort_bits >= 32 else 3, cfg),
-            keys.device, f"hybrid sort_kv of n={n}")
-        ks, vs = sort_kv_hybrid(k, v[0], sort_bits, cfg)
-        vs = (vs,)
+        if _order_on_host(k, sort_bits)[0]:
+            ks, vs = k, v
+        else:
+            # always stable, whatever ``stable`` says
+            check_device_bytes(
+                hybrid_bytes(n, 2 if sort_bits >= 32 else 3, cfg),
+                keys.device, f"hybrid sort_kv of n={n}")
+            ks, vs = sort_kv_hybrid(k, v[0], sort_bits, cfg)
+            vs = (vs,)
     else:
         check_device_bytes(
             network_bytes(n, network_streams(n, sort_bits, True, stable,
                                              len(v))),
             keys.device, f"sort_kv of n={n}")
-        ks, vs = sort_kv_network(k, v, sort_bits, stable=stable)
+        ks, vs = sort_kv_network(k, v, sort_bits, stable=stable,
+                                 flags=order_flags(_sort_key(k, sort_bits)))
     if descending:
         ks = ks ^ _order_mask(sort_bits)
     return undo(ks), undo_v(*vs)

@@ -32,6 +32,11 @@ result, on the same hand-written kernels. Below ``_FLOOR`` keys, and
 where the int32 run tables would wrap (:func:`_network_reason`), the
 network engine sorts too. :data:`last_dispatch` records which ran;
 :data:`step_hook` lets a caller wrap each step (to time it).
+
+That host read (and the ordered-input short cuts of ``ops/sort.py``,
+read on the host for this engine) cannot run while a CUDA graph is
+captured: under capture the engine raises before any work
+(:func:`refuse_capture`) and nothing falls back.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import contextlib
 import torch
 
 from ..config import Config
+from ..runtime.launcher import _capturing
 from ..utils.math import cdiv
 from ..utils.words import FF, ordered
 from .shuffle import move_runs
@@ -48,7 +54,7 @@ from .sort_host import host_rows
 from .sort_network import network_rows, sort_kv_network, sort_network
 
 __all__ = ["sort_hybrid", "sort_kv_hybrid", "hybrid_bytes", "last_dispatch",
-           "step_hook"]
+           "step_hook", "refuse_capture"]
 
 # Below this the network engine sorts: the hybrid's fixed costs (bucket
 # rows of at least one mover chunk each) only pay off for large n. The
@@ -69,6 +75,16 @@ last_dispatch: str | None = None
 # that step of the engine: "tiles", "phase A", "partition plan",
 # "partition move", "phase B", "compaction".
 step_hook = None
+
+
+def refuse_capture(what: str) -> None:
+    """Raise if a CUDA graph is being captured on the current stream: the
+    hybrid engine reads its bucket totals on the host."""
+    if _capturing():
+        raise RuntimeError(
+            f"{what}: the hybrid engine reads its bucket totals on the host "
+            "and cannot be captured in a CUDA graph yet; capture the network "
+            "engine (Config(engine='network'), or 'auto' on a CUDA tensor)")
 
 
 def _params(n: int, cfg: Config):
@@ -229,6 +245,7 @@ def _engine(streams, cfg: Config):
 def sort_hybrid(keys: torch.Tensor, sort_bits: int, cfg: Config):
     """Stable sort of u32 keys (int32 words) by their low sort_bits bits."""
     global last_dispatch
+    refuse_capture("hybrid sort")
     last_dispatch = _network_reason(keys.shape[0], cfg)
     if last_dispatch is None:
         if sort_bits >= 32:
@@ -246,6 +263,7 @@ def sort_kv_hybrid(keys: torch.Tensor, values: torch.Tensor,
     """Stable key-value sort of u32 keys and 32-bit value words (both
     int32) by the low sort_bits bits of the keys."""
     global last_dispatch
+    refuse_capture("hybrid sort_kv")
     last_dispatch = _network_reason(keys.shape[0], cfg)
     if last_dispatch is None:
         if sort_bits >= 32:

@@ -15,7 +15,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["SIGN", "FF", "INTS", "as_u64", "wrap_i32", "ordered",
-           "monotone", "split64", "join64", "int_view"]
+           "order_flags", "NONDECREASING", "NONINCREASING", "split64",
+           "join64", "int_view"]
 
 SIGN = -(1 << 31)   # the sign bit as an int32
 FF = -1             # the word 0xFFFFFFFF as an int32
@@ -56,10 +57,16 @@ def ordered(x: torch.Tensor) -> torch.Tensor:
     return x ^ SIGN
 
 
-def monotone(x: torch.Tensor) -> tuple[bool, bool]:
-    """(nondecreasing, nonincreasing) of the u32 sequence ``x`` (int32
-    words), read with one host sync."""
+NONDECREASING = 1   # bit of order_flags: the words never decrease
+NONINCREASING = 2   # bit of order_flags: the words never increase
+
+
+def order_flags(x: torch.Tensor) -> torch.Tensor:
+    """0-d int32 tensor on x's device: NONDECREASING | NONINCREASING of
+    the u32 sequence ``x`` (int32 words). Nothing reads it on the host,
+    so the branches it selects run on the device, as the reference's
+    ``lax.cond`` does, and the call can be captured in a CUDA graph."""
     o = ordered(x)
-    up, down = torch.stack((torch.all(o[1:] >= o[:-1]),
-                            torch.all(o[1:] <= o[:-1]))).tolist()
-    return up, down
+    up = torch.all(o[1:] >= o[:-1]).to(torch.int32)
+    down = torch.all(o[1:] <= o[:-1]).to(torch.int32)
+    return up | (down << 1)

@@ -931,6 +931,261 @@ def test_device_capacity_keys_on_the_card(dev):
     assert device_capacity_keys(3) == 1 << ((budget // 24).bit_length() - 1)
 
 
+# --- the ops inside a CUDA graph -------------------------------------------
+
+def _graph_keys(kind, n, dev, seed=0):
+    """u32 keys of one kind: random (ties), sorted, reversed, all equal."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k = torch.randint(0, 1 << 20, (n,), device=dev, generator=g,
+                      dtype=torch.int32)
+    if kind in ("nondecreasing", "nonincreasing"):
+        k = torch.sort(k, descending=kind == "nonincreasing").values
+    elif kind == "all-equal":
+        k = k[:1].expand(n).clone()
+    return k.view(torch.uint32)
+
+
+GRAPH_KINDS = ["random", "nondecreasing", "nonincreasing", "all-equal"]
+HOST = sortx_torch.Config(engine="host")
+
+
+def _same_tree(a, b):
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.reshape(-1).view(torch.uint8),
+                        y.reshape(-1).view(torch.uint8))
+        for x, y in zip(a, b))
+
+
+def _capture(run, static):
+    """Warm run(static) up on a side stream, then capture it; returns
+    (graph, its outputs)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run(static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run(static)
+    return graph, out
+
+
+GRAPH_OPS = {   # name -> (run(static, config), the host engine holds it)
+    "sort": (lambda st, cfg=None: sortx_torch.sort(st["k"], config=cfg),
+             True),
+    "sort_kv": (lambda st, cfg=None: sortx_torch.sort_kv(
+        st["k"], st["v"], config=cfg), True),
+    "sort_kv unstable": (lambda st, cfg=None: sortx_torch.sort_kv(
+        st["k"], st["v"], stable=False), False),
+    "scan": (lambda st, cfg=None: sortx_torch.scan(
+        st["k"].view(torch.int32), with_total=True, config=cfg), True),
+    "entry": (lambda st, cfg=None: sortx_torch.entry(st["k"], st["v"],
+                                                     config=cfg), True),
+    "kth_value": (lambda st, cfg=None: sortx_torch.kth_value(
+        st["k"], st["r"], config=cfg), True),
+}
+
+
+@pytest.mark.parametrize("n", [1 << 20, (1 << 19) + 13])
+@pytest.mark.parametrize("op", sorted(GRAPH_OPS))
+def test_capture_and_replay_follow_new_inputs(dev, op, n):
+    """Captured once, replayed on random, sorted, reversed and all-equal
+    keys (and kth_value on a new rank): each replay equals the eager call
+    bit for bit, and that the host engine's (unstable sort_kv: its keys,
+    and its values where the keys came sorted)."""
+    run, by_host = GRAPH_OPS[op]
+    vals = torch.arange(n, dtype=torch.int32, device=dev).flip(0)
+    static = {"k": _graph_keys("random", n, dev), "v": vals.clone(),
+              "r": torch.full((), n // 3, dtype=torch.int32, device=dev)}
+    graph, out = _capture(run, static)
+    cases = [(kind, {"k": _graph_keys(kind, n, dev, 1)})
+             for kind in GRAPH_KINDS]
+    cases.append(("another rank", {"r": torch.full(
+        (), n - 2, dtype=torch.int32, device=dev)}))
+    for kind, new in cases:
+        for k, t in new.items():
+            static[k].copy_(t)
+        graph.replay()
+        eager = run(static)
+        assert _same_tree(out, eager), kind
+        if by_host:
+            assert _same_tree(eager, run(static, HOST)), kind
+        else:
+            assert _same_tree(eager[0], sortx_torch.sort(static["k"]))
+            if kind in ("nondecreasing", "all-equal"):
+                assert torch.equal(eager[1], static["v"]), kind
+
+
+# the capture list's ops at 2^16 on the network engine (on a CUDA tensor
+# "auto" is the network)
+SYNC_OPS = {
+    "sort u32": lambda t: sortx_torch.sort(t["k"]),
+    "sort f32": lambda t: sortx_torch.sort(t["f"]),
+    "sort i16": lambda t: sortx_torch.sort(t["k"].to(torch.int16)),
+    "sort u64": lambda t: sortx_torch.sort(t["w"].view(torch.uint64)),
+    "sort sort_bits=8": lambda t: sortx_torch.sort(t["k"], 8),
+    "sort sort_bits=20": lambda t: sortx_torch.sort(t["k"], 20),
+    "sort descending": lambda t: sortx_torch.sort(t["k"], descending=True),
+    "sort ragged": lambda t: sortx_torch.sort(t["k"][:-13]),
+    "sort_kv stable": lambda t: sortx_torch.sort_kv(t["k"], t["v"]),
+    "sort_kv unstable": lambda t: sortx_torch.sort_kv(t["k"], t["v"],
+                                                      stable=False),
+    "sort_kv 64-bit values": lambda t: sortx_torch.sort_kv(t["k"], t["w"]),
+    "scan": lambda t: sortx_torch.scan(t["v"], with_total=True),
+    "entry": lambda t: sortx_torch.entry(t["k"], t["v"]),
+    "argsort": lambda t: sortx_torch.argsort(t["k"]),
+    "lexsort": lambda t: sortx_torch.lexsort((t["v"], t["k"])),
+    "merge": lambda t: sortx_torch.merge(t["a"], t["b"]),
+    "merge_kv": lambda t: sortx_torch.merge_kv(
+        t["a"], t["v"][:t["a"].shape[0]], t["b"], t["v"][:t["b"].shape[0]]),
+    "sort_segments": lambda t: sortx_torch.sort_segments(t["k"], t["o"]),
+    "scan_segments": lambda t: sortx_torch.scan_segments(
+        t["v"], t["o"], with_totals=True),
+    "kth_value": lambda t: sortx_torch.kth_value(t["k"], t["r"]),
+    "median": lambda t: sortx_torch.median(t["f"]),
+    "top_k": lambda t: sortx_torch.top_k(t["f"], 64, return_indices=True),
+    "unique": lambda t: sortx_torch.unique(t["k"], 100),
+    "histogram": lambda t: sortx_torch.histogram(t["k"], 8, 12),
+    "sort_rows": lambda t: sortx_torch.sort_rows(t["k"].view(16, -1)),
+    "sort_kv_rows": lambda t: sortx_torch.sort_kv_rows(
+        t["k"].view(16, -1), t["v"].view(16, -1)),
+}
+
+
+@pytest.mark.parametrize("op", sorted(SYNC_OPS))
+def test_op_makes_no_implicit_sync(dev, op):
+    n = 1 << 16
+    g = torch.Generator(device=dev).manual_seed(5)
+    k = _graph_keys("random", n, dev)
+    t = {"k": k, "v": torch.arange(n, dtype=torch.int32, device=dev),
+         "f": torch.randn(n, generator=g, device=dev),
+         "w": torch.randint(-2**62, 2**62, (n,), generator=g, device=dev),
+         "a": torch.sort(k[:n // 2].view(torch.int32)).values.view(
+             torch.uint32),
+         "b": torch.sort(k[n // 2:].view(torch.int32)).values.view(
+             torch.uint32),
+         "o": torch.tensor([0, 5, 5, 999, n], device=dev),
+         "r": torch.full((), 77, dtype=torch.int32, device=dev)}
+    SYNC_OPS[op](t)                       # builds, warms the allocator
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        SYNC_OPS[op](t)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_hybrid_refuses_capture(dev):
+    keys = _graph_keys("random", 1 << 16, dev)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="hybrid engine reads its bucket"):
+        with torch.cuda.graph(graph):
+            sortx_torch.sort(keys, config=sortx_torch.Config(engine="hybrid"))
+
+
+def test_no_profile_rows_while_public_ops_are_captured(dev, tmp_path):
+    """The port's side of the reference's
+    ``test_profile_rows_not_emitted_under_user_jit``: no op, step or
+    kernel row while a graph is captured; the replay sorts."""
+    from sortx_torch.runtime import toggle_profiling
+
+    csv = tmp_path / "prof.csv"
+    keys = _graph_keys("random", 1 << 18, dev)
+    vals = torch.arange(1 << 18, dtype=torch.int32, device=dev)
+    run = lambda: sortx_torch.entry(keys, vals)  # noqa: E731
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    toggle_profiling(True, str(csv), level="kernel")
+    try:
+        with torch.cuda.graph(graph):
+            out = run()
+    finally:
+        toggle_profiling(False, level="op")
+    assert not csv.exists() or csv.read_text() == ""
+    graph.replay()
+    assert _same_tree(out, sortx_torch.entry(keys, vals, config=HOST))
+
+
+def test_capture_with_no_warm_up_in_a_new_process(dev, tmp_path):
+    """A process that captures sort, sort_kv and scan before any eager
+    call: the kernels' once-a-device shared-memory attributes are then
+    set while the stream captures, which CUDA allows."""
+    import subprocess
+    import sys
+
+    code = """if True:
+        import torch, sortx_torch
+        from sortx_torch.ops import _build
+        _build.library()
+        n = 1 << 20
+        k = torch.randint(0, 1 << 30, (n,), device="cuda",
+                          dtype=torch.int32).view(torch.uint32)
+        v = torch.arange(n, dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = (sortx_torch.sort(k), *sortx_torch.sort_kv(k, v),
+                   *sortx_torch.scan(v, with_total=True))
+        g.replay()
+        ref = torch.sort(k.view(torch.int32), stable=True)
+        assert torch.equal(out[0].view(torch.int32), ref.values)
+        assert torch.equal(out[2], ref.indices.to(torch.int32))
+        assert int(out[4]) == (n * (n - 1) // 2) % 2**32 - 2**32 * (
+            (n * (n - 1) // 2) % 2**32 >= 2**31)
+        print("captured cold")
+    """
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600)
+    assert res.returncode == 0 and "captured cold" in res.stdout, res.stderr
+
+
+@pytest.mark.parametrize("n", [1, 3, 1 << 10, (1 << 20) + 5])
+@pytest.mark.parametrize("flag", [0, 1, 2, 3])
+def test_reverse_matches_plain(dev, n, flag):
+    src = _words(n, n, dup=False).to(dev)
+    got = _words(n + 1, n, dup=False).to(dev)
+    want = got.clone()
+    flags = torch.full((), flag, dtype=torch.int32, device=dev)
+    before = launches["reverse"]
+    tb.reverse_ordered(src, got, flags)
+    tb.reverse_plain(src, want, flags)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if n > 1:
+        assert torch.equal(got, src.flip(0)) == (flag == 2)
+    assert launches["reverse"] == before + 1
+
+
+@pytest.mark.parametrize("ns, nk", sorted(tb.STREAM_SETS))
+@pytest.mark.parametrize("kernel", ["block", "tail", "global"])
+@pytest.mark.parametrize("skip", [0, 1])
+def test_skip_flag_on_the_card(dev, ns, nk, kernel, skip):
+    """K1-K3 with the flag set leave the buffer as it is, at every
+    stream set; with it clear they equal the plain version."""
+    n = 1 << 15
+    x = _words(ns * 3 + nk, (ns, n), dup=False)
+    lb = min(tb.block_log(ns), 12)
+    fn, plain, args = {
+        "block": (tb.bitonic_block, tb.block_plain, (n, nk, lb)),
+        "tail": (tb.bitonic_tail, tb.tail_plain, (n, nk, lb, 15)),
+        "global": (tb.bitonic_global, tb.global_plain,
+                   (n, nk, 15, 14, 15 - tb.f_max(ns))),
+    }[kernel]
+    got = x.to(dev)
+    want = x.clone()
+    flag = torch.full((1,), skip, dtype=torch.int32)
+    plain(want, *args, skip=flag)
+    fn(got, *args, skip=flag.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got.cpu(), x) == bool(skip)
+
+
 # --- the distributed layer, one rank per card over NCCL -------------------
 
 

@@ -171,16 +171,24 @@ def test_sort_kv_ragged_sweep(rng, n):
 @pytest.mark.parametrize("case", ["sorted", "reversed", "sorted_kv",
                                   "low_bits_sorted_kv"])
 def test_ordered_inputs_take_the_short_cut(rng, monkeypatch, case):
-    """Ordered inputs come back from ops/sort.py without reaching either
-    engine, and equal to sortx's host engine."""
-    # the module, not the function that sortx_torch.ops re-exports
-    port_sort = importlib.import_module("sortx_torch.ops.sort")
+    """Ordered inputs take the reference's short cut on the network
+    engine, as a branch on the device: every pass of the network gets a
+    set skip flag, a reversed keys-only input is reversed by K8's plain
+    version, and the result equals sortx's host engine."""
+    bitonic = importlib.import_module("sortx_torch.ops.bitonic")
+    skips, reversals = [], []
+    layers, reverse = bitonic._layers, bitonic.reverse_plain
 
-    def engine(*args, **kwargs):
-        raise AssertionError("an engine ran on an ordered input")
-    for name in ("sort_host", "sort_kv_host", "sort_network",
-                 "sort_kv_network"):
-        monkeypatch.setattr(port_sort, name, engine)
+    def spy_layers(x, ext, num_keys, lay, skip):
+        skips.append(skip is not None and int(skip) != 0)
+        return layers(x, ext, num_keys, lay, skip)
+
+    def spy_reverse(src, out, flags):
+        reversals.append(int(flags))
+        return reverse(src, out, flags)
+    monkeypatch.setattr(bitonic, "_layers", spy_layers)
+    monkeypatch.setattr(bitonic, "reverse_plain", spy_reverse)
+    net = sortx_torch.Config(engine="network")
     k = np.sort(_keys(rng, np.uint32, 5000))
     v = rng.randint(0, 2**32, size=5000, dtype=np.uint32)
     if case == "reversed":
@@ -192,12 +200,15 @@ def test_ordered_inputs_take_the_short_cut(rng, monkeypatch, case):
     if case.endswith("kv"):
         want = sortx.sort_kv(jnp.asarray(k), jnp.asarray(v), sort_bits,
                              config=HOST)
-        got = sortx_torch.sort_kv(to_torch(k), to_torch(v), sort_bits)
+        got = sortx_torch.sort_kv(to_torch(k), to_torch(v), sort_bits,
+                                  config=net)
         _same(got[0], want[0])
         _same(got[1], want[1])
     else:
-        _same(sortx_torch.sort(to_torch(k)),
+        _same(sortx_torch.sort(to_torch(k), config=net),
               sortx.sort(jnp.asarray(k), config=HOST))
+        assert reversals == [2 if case == "reversed" else 1]
+    assert skips and all(skips)
 
 
 @pytest.mark.parametrize("n", [0, 1, 2])
