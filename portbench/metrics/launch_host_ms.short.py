@@ -1,0 +1,16 @@
+"""The host's ms per call in the port's kernel launches: the summed time
+of the ``sortx_torch.launch.*`` spans in the traced slice (the stream's
+look-up and the ``ctypes`` call), over its calls
+(``api_host_ms.short``'s arithmetic)."""
+
+from pathlib import Path
+
+from portbench import spec
+
+
+def read(r):
+    spans = spec.load_module(Path(__file__).with_name("api_host_ms.short.py"))
+    ms = spans.layer_ms(r.slice)
+    if ms is None:
+        return None
+    return ms.get("launch", 0.0)

@@ -36,6 +36,8 @@ from pathlib import Path
 
 import torch
 
+from ..runtime.launcher import span
+
 __all__ = ["library", "launch", "launches", "on_card", "check_device",
            "nvcc_path", "build_lock", "BUILD_DIR", "SOURCES", "NVCC_FLAGS"]
 
@@ -169,9 +171,11 @@ def check_device(device) -> torch.device:
 
 
 def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
-    """Run C ``entry`` on ``device``'s current stream; count ``kernel``."""
+    """Run C ``entry`` on ``device``'s current stream; count ``kernel``.
+    The span ``launch.<kernel>`` covers the stream's look-up and the
+    call."""
     lib = library()
-    with torch.cuda.device(device):
+    with span("launch", kernel), torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, entry)(*args, stream)
     if err:

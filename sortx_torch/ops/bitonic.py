@@ -70,7 +70,7 @@ import collections
 import torch
 
 from ..config import LOG_BLOCK_MAX
-from ..runtime.launcher import profiled
+from ..runtime.launcher import profiled, span
 from ..utils.math import cdiv
 from ..utils.words import NONDECREASING, NONINCREASING, ordered
 from ._build import launch, on_card
@@ -482,9 +482,10 @@ def bitonic_sort_streams(x: torch.Tensor, num_keys: int, *,
     ``skip``: every pass returns at once where it is set, so ``x`` comes
     back as it went in.
     """
-    for name, args in pass_plan(*x.shape, num_keys, n_valid, log_block,
-                                row_log):
-        KERNELS[name][0](x, *args, skip=skip)
+    with span("driver", "bitonic"):
+        for name, args in pass_plan(*x.shape, num_keys, n_valid, log_block,
+                                    row_log):
+            KERNELS[name][0](x, *args, skip=skip)
     return x
 
 
@@ -494,6 +495,8 @@ def bitonic_merge_streams(x: torch.Tensor, num_keys: int, *,
     in place: its columns must form one bitonic sequence on the first
     ``num_keys`` rows (an ascending run, then a descending one, as
     ``[a, pads, reverse(b)]``); n is a power of two >= 1024. Returns x."""
-    for name, args in merge_plan(x.shape[0], x.shape[1], num_keys, log_block):
-        KERNELS[name][0](x, *args)
+    with span("driver", "bitonic"):
+        for name, args in merge_plan(x.shape[0], x.shape[1], num_keys,
+                                     log_block):
+            KERNELS[name][0](x, *args)
     return x

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import torch
 
+from ..runtime.launcher import span
 from ..utils.math import cdiv
 from ..utils.words import FF, NONDECREASING, wrap_i32
 from .bitonic import bitonic_sort_streams, block_log, reverse_ordered
@@ -111,17 +112,19 @@ def sort_network(keys: torch.Tensor, sort_bits: int,
     """Stable sort of u32 keys (int32 words) by their low sort_bits bits.
     ``flags``: the order flags of the sort key (``order_flags``), for the
     device-side short cuts; None runs the network whatever the input."""
-    n = keys.shape[0]
-    skip = presorted(flags)
-    if sort_bits >= 32:
-        if flags is None:
-            return _bitonic((keys,), 1, n)[0]
-        out = _bitonic((keys,), 1, n, (flags != 0).to(torch.int32))[0]
-        return reverse_ordered(keys, out, flags)
-    masked = keys & ((1 << sort_bits) - 1)
-    if packed_partial(n, sort_bits):
-        return _bitonic((_composite(masked, sort_bits), keys), 1, n, skip)[1]
-    return _bitonic((masked, _iota(n, keys.device), keys), 2, n, skip)[2]
+    with span("engine", "network"):
+        n = keys.shape[0]
+        skip = presorted(flags)
+        if sort_bits >= 32:
+            if flags is None:
+                return _bitonic((keys,), 1, n)[0]
+            out = _bitonic((keys,), 1, n, (flags != 0).to(torch.int32))[0]
+            return reverse_ordered(keys, out, flags)
+        masked = keys & ((1 << sort_bits) - 1)
+        if packed_partial(n, sort_bits):
+            return _bitonic((_composite(masked, sort_bits), keys), 1, n,
+                            skip)[1]
+        return _bitonic((masked, _iota(n, keys.device), keys), 2, n, skip)[2]
 
 
 def sort_kv_network(keys: torch.Tensor, values, sort_bits: int,
@@ -130,28 +133,31 @@ def sort_kv_network(keys: torch.Tensor, values, sort_bits: int,
     (a tuple of int32: one word, or the (hi, lo) of 64-bit values).
     Returns (keys, tuple of value words). ``flags`` as for
     :func:`sort_network`: a nondecreasing sort key skips the network."""
-    n = keys.shape[0]
-    skip = presorted(flags)
-    values = tuple(values)
-    masked = keys if sort_bits >= 32 else keys & ((1 << sort_bits) - 1)
-    if sort_bits >= 32 and not stable:
-        # At n = 2^k >= 1024 there are no pads, so the key alone may be
-        # the comparator; otherwise (key, value words) keep a pad from
-        # displacing a real (0xFFFFFFFF, v) pair off the kept prefix.
-        pow2 = n >= 1024 and n & (n - 1) == 0
-        out = _bitonic((keys,) + values, 1 if pow2 else 1 + len(values), n,
+    with span("engine", "network"):
+        n = keys.shape[0]
+        skip = presorted(flags)
+        values = tuple(values)
+        masked = keys if sort_bits >= 32 else keys & ((1 << sort_bits) - 1)
+        if sort_bits >= 32 and not stable:
+            # At n = 2^k >= 1024 there are no pads, so the key alone may
+            # be the comparator; otherwise (key, value words) keep a pad
+            # from displacing a real (0xFFFFFFFF, v) pair off the kept
+            # prefix.
+            pow2 = n >= 1024 and n & (n - 1) == 0
+            out = _bitonic((keys,) + values,
+                           1 if pow2 else 1 + len(values), n, skip)
+            return out[0], out[1:]
+        if sort_bits >= 32:
+            out = _bitonic((keys, _iota(n, keys.device)) + values, 2, n,
+                           skip)
+            return out[0], out[2:]
+        if packed_partial(n, sort_bits):
+            out = _bitonic((_composite(masked, sort_bits), keys) + values,
+                           1, n, skip)
+            return out[1], out[2:]
+        out = _bitonic((masked, _iota(n, keys.device), keys) + values, 2, n,
                        skip)
-        return out[0], out[1:]
-    if sort_bits >= 32:
-        out = _bitonic((keys, _iota(n, keys.device)) + values, 2, n, skip)
-        return out[0], out[2:]
-    if packed_partial(n, sort_bits):
-        out = _bitonic((_composite(masked, sort_bits), keys) + values, 1, n,
-                       skip)
-        return out[1], out[2:]
-    out = _bitonic((masked, _iota(n, keys.device), keys) + values, 2, n,
-                   skip)
-    return out[2], out[3:]
+        return out[2], out[3:]
 
 
 def network_rows(rows):

@@ -22,10 +22,27 @@ While a CUDA graph is being captured (``torch.cuda.
 is_current_stream_capturing()``) nothing is timed, synchronised,
 written or captured: a synchronisation would break the capture. That is
 the port's case of the reference's "no rows under a user jit".
+
+Spans for ``torch.profiler`` (:func:`span`): while a profiler runs, the
+port's layers open record-function ranges named
+``sortx_torch.<layer>.<name>``, on the profiler's clock with the card's
+kernels:
+
+  - ``api.<op>``: every public op (``@profiled``);
+  - ``engine.network``: the network engine (``ops/sort_network.py``);
+  - ``driver.bitonic``: the pass plan and its loop (``ops/bitonic.py``);
+  - ``launch.<kernel>``: each kernel launch (``ops/_build.py:launch``);
+  - ``dist.<step>``: each step of the distributed sort
+    (:func:`profiled_step`), whose times on the card are kept as a
+    pair of CUDA events (host-clock marks on the CPU) and read, with no
+    synchronise on the way, by ``profiler.step_ms``.
+
+With no profiler running a span costs one check and opens nothing.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -40,7 +57,8 @@ from ..utils.log import Channel, log
 
 __all__ = ["Launcher", "replay", "toggle_profiling", "profiling_enabled",
            "profiling_level", "profile_call", "profiled",
-           "profiled_step", "capture_next_op", "replay_op"]
+           "profiled_step", "capture_next_op", "replay_op", "span",
+           "tracing"]
 
 _PROFILE = {"enabled": False, "path": None, "level": "op"}
 _LEVELS = ("op", "step", "kernel")
@@ -48,6 +66,44 @@ _LEVELS = ("op", "step", "kernel")
 # capture_next_op, consumed by the first matching @profiled op (or, at
 # level="kernel", kernel wrapper).
 _CAPTURE: dict = {"path": None, "match": None}
+
+# True while a torch profiler runs: the gate of every span.
+tracing = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
+# The range a span opens: the profiler's record function, entered from
+# C++ (``record_function`` adds a dispatched op on entry and on exit,
+# ten times the cost under the profiler).
+_range = torch._C._profiler._RecordFunctionFast
+# The event-timed steps of the last calls made under a profiler, one
+# (call number, [(step, start mark, end mark)]) entry a call; bounded,
+# so a long traced run keeps only its last calls.
+STEP_CALLS_KEPT = 256
+_STEP_CALLS: collections.deque = collections.deque(maxlen=STEP_CALLS_KEPT)
+_CALL = {"seq": 0, "depth": 0}
+
+
+def span(layer: str, name: str):
+    """The range ``sortx_torch.<layer>.<name>`` (a record function on
+    the profiler's clock) while a torch profiler runs; otherwise a shared
+    null context, so the span costs one check and allocates nothing.
+    Spans nest on the calling thread."""
+    if not tracing():
+        return _NO_SPAN
+    return _range(f"sortx_torch.{layer}.{name}")
+
+
+@contextlib.contextmanager
+def _op_span(name: str):
+    """A public op's span; the outermost op (not one it calls) numbers
+    the call that its steps are grouped under."""
+    if _CALL["depth"] == 0:
+        _CALL["seq"] += 1
+    _CALL["depth"] += 1
+    try:
+        with span("api", name):
+            yield
+    finally:
+        _CALL["depth"] -= 1
 
 
 def toggle_profiling(enable: bool, csv_path: Optional[str] = None,
@@ -249,36 +305,72 @@ def profile_call(name: str, fn: Callable, *args, _level: str = "op", **kw):
 
 def profiled(name: str, level: str = "op"):
     """Decorator wiring a library op (or, with ``level="kernel"``, a
-    kernel wrapper) into ``toggle_profiling`` and ``capture_next_op``.
-    Two dict lookups when both are off."""
+    kernel wrapper) into ``toggle_profiling`` and ``capture_next_op``,
+    and a public op into the profiler's spans (``api.<name>``). Two dict
+    lookups and the profiler check when all are off."""
     def deco(fn):
+        if level != "op":
+            @functools.wraps(fn)
+            def wrapper(*args, **kw):
+                if not _PROFILE["enabled"] and _CAPTURE["path"] is None:
+                    return fn(*args, **kw)
+                return profile_call(name, fn, *args, _level=level, **kw)
+            return wrapper
+
         @functools.wraps(fn)
-        def wrapper(*args, **kw):
-            if not _PROFILE["enabled"] and _CAPTURE["path"] is None:
+        def op(*args, **kw):
+            if (not _PROFILE["enabled"] and _CAPTURE["path"] is None
+                    and not tracing()):
                 return fn(*args, **kw)
-            return profile_call(name, fn, *args, _level=level, **kw)
-        return wrapper
+            with _op_span(name):
+                return profile_call(name, fn, *args, **kw)
+        return op
     return deco
+
+
+def _mark(device: torch.device):
+    """A point on ``device``'s time line: a timing event recorded on its
+    current stream, or the host clock for the CPU."""
+    if device.type != "cuda":
+        return time.perf_counter()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def _keep_step(name: str, start, end) -> None:
+    if not _STEP_CALLS or _STEP_CALLS[-1][0] != _CALL["seq"]:
+        _STEP_CALLS.append((_CALL["seq"], []))
+    _STEP_CALLS[-1][1].append((name, start, end))
 
 
 @contextlib.contextmanager
 def profiled_step(name: str, device: torch.device):
-    """A named step inside a library op: when profiling is on at
-    ``level="step"`` or ``"kernel"`` and no CUDA graph is being captured,
-    the block is timed as ``profile_call`` times a call (synchronise
-    ``device``, run, synchronise, host clock) and appends the row
-    ``name,ms,``."""
-    if (not _PROFILE["enabled"] or _PROFILE["level"] == "op"
-            or _capturing()):
+    """A named step ``<op>/<step>`` of the distributed layer. Unless a
+    CUDA graph is being captured: while a torch profiler runs, the block
+    is the span ``dist.<step>`` and its time on ``device`` is kept as a
+    pair of marks (no synchronise; ``profiler.step_ms`` reads them); when
+    profiling is on at ``level="step"`` or ``"kernel"``, the block is
+    timed as ``profile_call`` times a call (synchronise ``device``, run,
+    synchronise, host clock) and appends the row ``name,ms,``."""
+    rows = _PROFILE["enabled"] and _PROFILE["level"] != "op"
+    traced = tracing()
+    if not (rows or traced) or _capturing():
         yield
         return
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    yield
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    _append_row(name, (time.perf_counter() - t0) * 1e3, "")
+    with span("dist", name.rpartition("/")[2]):
+        start = _mark(device) if traced else None
+        if rows:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+        yield
+        if rows:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            _append_row(name, (time.perf_counter() - t0) * 1e3, "")
+        if traced:
+            _keep_step(name, start, _mark(device))
 
 
 def _profile_path() -> str:

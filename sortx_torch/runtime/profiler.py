@@ -3,9 +3,9 @@
 Port of ``sortx/runtime/profiler.py`` on ``torch.profiler``: a trace of
 the host's ops and, on a card, of every CUDA kernel, written as a Chrome
 trace (``chrome://tracing``, Perfetto) into ``log_dir``. ``annotate``
-names a region of it (``record_function``). ``profile_op`` times an op
-the reference's way: synchronise after every call, subtract the
-measured cost of a synchronised call that does nothing.
+names a region of it (``record_function``); the port's own layers open
+their spans there too (``launcher.span``). ``step_ms`` reads the
+distributed sort's steps as the card timed them under the profiler.
 """
 
 from __future__ import annotations
@@ -18,9 +18,9 @@ import time
 import torch
 
 from ..utils.log import Channel, log
-from .launcher import _PROFILE, _profile_path, _shapes_of, _sync
+from .launcher import _STEP_CALLS
 
-__all__ = ["trace", "start_trace", "stop_trace", "annotate", "profile_op"]
+__all__ = ["trace", "start_trace", "stop_trace", "annotate", "step_ms"]
 
 _DEFAULT_DIR = os.environ.get("SORTX_TRACE_DIR", os.path.join(
     tempfile.gettempdir(), "sortx_torch_trace"))
@@ -72,38 +72,27 @@ def annotate(name: str):
     return torch.profiler.record_function(name)
 
 
-def profile_op(fn, *args, iters: int = 4, label: str | None = None,
-               warmup: bool = True) -> float:
-    """Measured milliseconds per call of ``fn(*args)``.
+def _elapsed_ms(start, end) -> float:
+    if isinstance(start, float):              # host-clock marks (CPU)
+        return (end - start) * 1e3
+    end.synchronize()
+    return start.elapsed_time(end)
 
-    Each call is followed by a synchronisation of the cards its
-    arguments and outputs live on, and the measured time of a
-    synchronised call that does nothing on the same device is
-    subtracted. With profiling toggled on (``toggle_profiling``) the
-    result is appended to the same CSV as the per-launch rows, named
-    ``op:<label>``.
-    """
-    def run():
-        _sync((args, fn(*args)))
 
-    if warmup:
-        run()                         # builds and first-touch outside
-    devs = [t.device for t in args if isinstance(t, torch.Tensor)]
-    tiny = torch.zeros(16, device=devs[0] if devs else "cpu")
-    _sync(tiny + 1)
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        _sync(tiny + 1)
-    overhead = (time.perf_counter() - t0) / iters
-
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        run()
-    ms = max((time.perf_counter() - t0) / iters - overhead, 0.0) * 1e3
-
-    name = label or getattr(fn, "__name__", "op")
-    log(f"profile_op {name}: {ms:.3f} ms ({iters} iters)", Channel.PERF)
-    if _PROFILE["enabled"]:
-        with open(_profile_path(), "a") as f:
-            f.write(f"op:{name},{ms:.6f},{_shapes_of(list(args))}\n")
-    return ms
+def step_ms(clear: bool = False) -> list[dict]:
+    """The steps of the last calls made under a torch profiler (at most
+    ``launcher.STEP_CALLS_KEPT``), oldest first: one dict a call, step
+    name (``dist_sort/<step>``, as the step rows name it) -> ms on the
+    card from the step's start to its end (the host clock for CPU
+    tensors). Waits for each step's end here, not while the call runs.
+    ``clear`` forgets them."""
+    calls = list(_STEP_CALLS)
+    if clear:
+        _STEP_CALLS.clear()
+    out = []
+    for _, steps in calls:
+        ms: dict = {}
+        for name, start, end in steps:
+            ms[name] = ms.get(name, 0.0) + _elapsed_ms(start, end)
+        out.append(ms)
+    return out

@@ -344,18 +344,6 @@ def test_profiler_trace(tmp_path):
         profiler.stop_trace()
 
 
-def test_profile_op_measures_and_logs_csv(rng, csv):
-    keys = to_torch(_u32(rng, 4096))
-    ms = profiler.profile_op(sortx_torch.sort, keys, iters=2, label="sort4k")
-    assert ms >= 0.0
-    rows = _rows(csv)
-    assert sum(r.startswith("op:sort4k,") for r in rows) == 1
-    # without the toggle: measured but not written (and the op rows stop)
-    toggle_profiling(False)
-    assert profiler.profile_op(sortx_torch.sort, keys, iters=2) >= 0.0
-    assert _rows(csv) == rows
-
-
 def test_warmup_on_the_cpu(monkeypatch):
     from sortx_torch.runtime import warmup
     warmup(sizes=(1024, 3000), kv=True, scan_too=True, device="cpu")
