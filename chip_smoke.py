@@ -12,14 +12,17 @@ streams) and in the merge stage, the scan (sizes around a tile's edges,
 wrapping and all-ones words, a shifted view, 20 repeats, under two
 configs' tiles), the
 histogram (uniform, all-equal and two-valued words, every digit width,
-per tile and whole, with and without the prefix filter), and both run
-movers;
+per tile and whole, with and without the prefix filter), both run
+movers, and the radix engine's K9 and every K10 pass (2^20, 2^27 and
+2^26 + 13, keys-only and with values, full and partial sort_bits,
+uniform, 16-valued and all-equal words);
 K1 and K2 also at the block sizes no plan reaches (the smallest the
 wrappers take, the ends of the register design's range, a buffer off
 the 16-byte grid). Then it drives each path through the public API at full size (n = 2^27
 u32 keys, 512 MB per stream, or 2048 rows of 2^16):
 
-  flagship   sort, sort_kv, scan and entry (the network engine)
+  flagship   sort, sort_kv, scan and entry (the radix engine; unstable
+             sort_kv on the network)
   hybrid     sort and sort_kv under Config(engine="hybrid"), and a skewed
              input that takes its overflow branch
   rows       sort_rows and sort_kv_rows
@@ -124,6 +127,7 @@ import torch
 import sortx_torch
 from sortx_torch.ops import _build
 from sortx_torch.ops import bitonic as tb
+from sortx_torch.ops import radix as rx
 from sortx_torch.ops import sort_hybrid as hy
 from sortx_torch.ops.radix_kernels import histogram_plain, tile_histogram
 from sortx_torch.ops.scan import scan_plain, tile_scan
@@ -155,8 +159,13 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     # reference's lax.cond for a nonincreasing keys-only input
     "reverse": ("sortx_torch/csrc/bitonic.cu",
                 "sortx/ops/sort_pallas.py:349"),
+    # K9 and K10 replace no Pallas kernel: the radix engine sorts where
+    # the reference ran the network (its own algorithm, OCLRadixSort's)
+    "radix_histogram": ("sortx_torch/csrc/radix.cu", "none"),
+    "radix_onesweep": ("sortx_torch/csrc/radix.cu", "none"),
 }
 NETWORK = ("bitonic_block", "bitonic_tail", "bitonic_global")
+RADIX = ("radix_histogram", "radix_onesweep")
 # The card's peaks the bounds divide by (H100 SXM, NVIDIA's data sheet):
 # device memory 3.35 TB/s; integer compare, min, max, add and select
 # run outside the tensor cores on 64 INT32 lanes per SM, one operation
@@ -320,7 +329,53 @@ def kernel_checks(dev) -> dict:
     rows_walks(rng, dev, err)
     histogram_checks(rng, dev, err)
     mover_checks(dev, err)
+    radix_checks(rng, dev, err)
     return err
+
+
+def radix_checks(rng, dev, err: dict) -> None:
+    """K9 and each K10 pass against their plain versions at 2^20, 2^27
+    and 2^26 + 13, keys-only and with values, at full and partial
+    sort_bits (the last digit narrower), on uniform and tie-heavy keys;
+    the kernels' passes must also sort."""
+    for n, bits, kind, kv in ((1 << 20, 32, "uniform", True),
+                              (N, 32, "uniform", False),
+                              (N, 32, "uniform", True),
+                              (RAGGED, 32, "uniform", True),
+                              (RAGGED, 20, "16-valued", False),
+                              (1 << 20, 9, "all-equal", True)):
+        keys = skewed_words(rng, n, dev, kind)
+        vals = torch.arange(n, dtype=torch.int32, device=dev) if kv else None
+        what = f"n={n} sort_bits={bits} {kind}{' with values' if kv else ''}"
+        got = rx.radix_histogram(keys, bits)
+        want = rx.offsets_plain(keys, bits)
+        err["radix_histogram"] = max(err["radix_histogram"],
+                                     max_abs_err(got, want))
+        check(torch.equal(got, want), f"radix_histogram {what} == plain")
+        src, vsrc = keys, vals
+        for p in range(rx.radix_passes(bits)):
+            db = min(8, bits - 8 * p)
+            out, vout = rx.onesweep_plain(src, 8 * p, db, want[p], vsrc)
+            kout = torch.empty_like(src)
+            vk = None if vals is None else torch.empty_like(vals)
+            region = torch.zeros(rx.scratch_words(n, 1), dtype=torch.int32,
+                                 device=dev)
+            rx.radix_onesweep(src, kout, want[p].contiguous(), 8 * p, db,
+                              region=region, values=vsrc, values_out=vk)
+            torch.cuda.synchronize()
+            ok = torch.equal(kout, out) and (vk is None
+                                             or torch.equal(vk, vout))
+            if not ok:
+                err["radix_onesweep"] = max(err["radix_onesweep"],
+                                            max_abs_err(kout, out))
+            check(ok, f"radix_onesweep pass {p} {what} == plain")
+            src, vsrc = kout, vk
+            del out, vout, region
+        order = torch.sort(u64(keys) & ((1 << bits) - 1), stable=True).indices
+        check(torch.equal(src, keys[order]) and (
+            vals is None or torch.equal(vsrc, vals[order])),
+            f"radix passes {what} == stable torch.sort of the low bits")
+        del keys, vals, src, vsrc, order
 
 
 def order_flag(value: int, dev) -> torch.Tensor:
@@ -651,7 +706,9 @@ def main_path(dev) -> dict:
           and torch.equal(s, ps)
           and int(total) & 0xFFFFFFFF == int(k64.sum()) & 0xFFFFFFFF,
           f"entry(): sort_kv then scan n={N}, total == sum of keys mod 2^32")
-    return read_launches("flagship", NETWORK + ("scan", "reverse"))
+    # sort and stable sort_kv run the radix engine; unstable sort_kv the
+    # network (K8 runs only on an ordered keys-only network sort now)
+    return read_launches("flagship", RADIX + NETWORK + ("scan",))
 
 
 def read_launches(path: str, kernels) -> dict:
@@ -1390,11 +1447,17 @@ def timings(dev, card: str, err: dict):
     def line(what, times, per=None):
         return time_line(card, what, times, per)
 
+    net = sortx_torch.Config(engine="network")
     line(f"sortx_torch.sort u32 n={N} keys",
          time_ms(lambda: sortx_torch.sort(u)), N)
-    line(f"torch.sort int32 n={N} keys", time_ms(lambda: torch.sort(keys)), N)
+    line(f"sortx_torch.sort u32 n={N} keys, network engine",
+         time_ms(lambda: sortx_torch.sort(u, config=net)), N)
+    torch_sort = line(f"torch.sort int32 n={N} keys",
+                      time_ms(lambda: torch.sort(keys)), N)
     line(f"sortx_torch.sort_kv stable u32 n={N} keys",
          time_ms(lambda: sortx_torch.sort_kv(u, values)), N)
+    line(f"sortx_torch.sort_kv stable u32 n={N} keys, network engine",
+         time_ms(lambda: sortx_torch.sort_kv(u, values, config=net)), N)
     line(f"sortx_torch.sort_kv unstable u32 n={N} keys",
          time_ms(lambda: sortx_torch.sort_kv(u, values, stable=False)), N)
     line(f"torch.sort(stable=True) + gather int32 n={N} keys",
@@ -1478,7 +1541,75 @@ def timings(dev, card: str, err: dict):
     print(f"bound reverse n={N}: {extra['reverse']['bound_ms']!r} ms by "
           f"{extra['reverse']['bound_by']}")
     del out
+    radix_timings(card, keys, values, err, torch_sort, ms, extra)
     return ms, extra
+
+
+def radix_timings(card: str, keys, values, err: dict, torch_sort: float,
+                  ms: dict, extra: dict) -> None:
+    """K9, and K10's first pass keys-only and with values, at 2^27, each
+    over ROW calls in a row beside its plain version, its bound by bytes
+    and torch.sort of the same keys (the one PyTorch call that sorts
+    them; the port never calls it). Each K10 call takes a zeroed region
+    of its own, zeroed untimed before each timing."""
+    scratch = torch.empty(rx.scratch_words(N, 4), dtype=torch.int32,
+                          device=keys.device)
+    what = f"radix_histogram n={N} sort_bits=32"
+    ms["radix_histogram"] = timed_kernel(
+        card, what, lambda: rx.radix_histogram(keys, 32, scratch),
+        lambda: rx.offsets_plain(keys, 32), err, "radix_histogram",
+        calls=ROW)
+    # K9 reads each key once; a shift, a mask and an add a digit
+    extra["radix_histogram"] = dict(bound(4 * N, 3 * 4 * N),
+                                    library_ms=torch_sort)
+    offsets = rx.offsets_plain(keys, 32)[0].contiguous()
+    regions = torch.empty(ROW, rx.scratch_words(N, 1), dtype=torch.int32,
+                          device=keys.device)
+    out, vout = torch.empty_like(keys), torch.empty_like(values)
+    turn = [0]
+
+    def zero():
+        regions.zero_()
+        turn[0] = 0
+
+    def one_pass(vals):
+        def run():
+            rx.radix_onesweep(keys, out, offsets, 0, 8,
+                              region=regions[turn[0] % ROW], values=vals,
+                              values_out=None if vals is None else vout)
+            turn[0] += 1
+            return (out,) if vals is None else (out, vout)
+        return run
+
+    for vals, bytes_per_key in ((None, 8), (values, 16)):
+        what = (f"radix_onesweep n={N} digit 0 "
+                f"{'keys-only' if vals is None else 'with values'}")
+        k_p = timed_kernel(card, what, one_pass(vals), lambda: [
+            t for t in rx.onesweep_plain(keys, 0, 8, offsets, vals)
+            if t is not None], err, "radix_onesweep", zero, calls=ROW)
+        # a pass reads and writes each key (and value) once; its
+        # operations (a match, a shift, a few adds a word) are below that
+        b = bound(bytes_per_key * N, 0)
+        print(f"bound {what}: {b['bound_ms']!r} ms by {b['bound_by']}")
+        if vals is None:
+            ms["radix_onesweep"] = k_p
+            extra["radix_onesweep"] = dict(b, library_ms=torch_sort)
+    del scratch, regions, out, vout
+    # the radix engine's time depends on the keys (the network's does
+    # not): tie-heavy keys crowd K9's and K10's shared counters
+    net = sortx_torch.Config(engine="network")
+    gen = torch.Generator(device=keys.device).manual_seed(SEED + 40)
+    tied = cwords(gen, N, keys.device)
+    for _ in range(4):
+        tied &= cwords(gen, N, keys.device)
+    for kind, k in (("entropy 0.201 (AND of 5 words)", tied),
+                    ("all-equal", torch.full_like(keys, 0x5A5A5A5A))):
+        u = k.view(torch.uint32)
+        for what, cfg in (("radix", None), ("network", net)):
+            time_line(card, f"sortx_torch.sort u32 n={N} {kind} keys, {what} "
+                      "engine", time_ms(lambda: sortx_torch.sort(u, config=cfg),
+                                        reps=3), N)
+    del tied
 
 
 # The blocks (log2) K1 and K2 had at 1 and 4 streams before they kept
@@ -1790,36 +1921,18 @@ def radix_image(t: torch.Tensor) -> torch.Tensor:
     return b.to(torch.int64) & 0xFFFFFFFF
 
 
-def chunk_launches(n: int, chunk: int, ns: int, nk: int) -> list:
-    """Per chunk of a sort_large of n, the network's launches by kernel
-    (its pass plan over ns streams padded as sort_network pads)."""
-    out = []
-    for lo in range(0, n, chunk):
-        c = min(chunk, n - lo)
-        np2 = 1 << max((c - 1).bit_length(), 10)
-        out.append(collections.Counter(
-            name for name, _ in tb.pass_plan(ns, np2, nk, c)))
-    return out
-
-
-def check_chunk_launches(what: str, n: int, chunk: int, ns: int,
-                         nk: int) -> None:
-    """The launches of the run just made are those of its chunks' pass
-    plans; each chunk larger than a block launched K1, K2 and K3."""
+def check_chunk_launches(what: str, n: int, chunk: int,
+                         sort_bits: int) -> None:
+    """The launches of the run just made are its chunks' radix sorts: one
+    K9 and ceil(sort_bits / 8) K10 passes a chunk, and no network."""
     torch.cuda.synchronize()
-    per_chunk = chunk_launches(n, chunk, ns, nk)
-    want = sum(per_chunk, collections.Counter())
-    got = collections.Counter({k: v for k, v in _build.launches.items()
-                               if k in NETWORK})
-    print(f"launches of {what}: {dict(got)}; per chunk "
-          f"{[dict(c) for c in per_chunk]}")
-    check(got == want, f"{what}: the launches are those of its "
-          f"{len(per_chunk)} chunks' pass plans")
-    big = [c for lo, c in zip(range(0, n, chunk), per_chunk)
-           if min(chunk, n - lo) > 1 << tb.block_log(ns)]
-    check(all(all(c[k] > 0 for k in NETWORK) for c in big),
-          f"{what}: each of its {len(big)} chunks above a block launched "
-          "K1, K2 and K3")
+    chunks = len(range(0, n, chunk))
+    got = {k: c for k, c in _build.launches.items() if k in RADIX + NETWORK}
+    print(f"launches of {what}: {got}; {chunks} chunks")
+    check(got == {"radix_histogram": chunks, "radix_onesweep":
+                  chunks * rx.radix_passes(sort_bits)},
+          f"{what}: the launches are those of its {chunks} chunks' radix "
+          "sorts")
 
 
 def facade_checks(dev, card: str) -> dict:
@@ -1877,7 +1990,7 @@ def facade_checks(dev, card: str) -> dict:
           f"ParallelPrimitives.scan(dst u32, src, with_total=True) n={N} "
           "== torch.cumsum, total a 0-d uint32 == sum mod 2^32")
     del want
-    counts = read_launches("facade", NETWORK + ("scan",))
+    counts = read_launches("facade", RADIX + ("scan",))
 
     restore = lambda: kb.array.view(torch.int32).copy_(keys)  # noqa: E731
     time_line(card, f"ParallelPrimitives.radix_sort u32 n={N} (Buffer)",
@@ -1983,7 +2096,7 @@ def out_of_core_checks(dev, card: str) -> None:
     what = f"sort_large u32 n={big}"
     out = timed(what, lambda: sortx_torch.sort_large(
         host, chunk_elems=chunk, device=dev), big)
-    check_chunk_launches(what, big, chunk, 1, 1)
+    check_chunk_launches(what, big, chunk, 32)
     want = torch.sort(radix_image(card_keys.view(torch.uint32))).values
     check(torch.equal(u64(torch.from_numpy(out.view(np.int32)).to(dev)),
                       want), f"{what} == torch.sort on the card")
@@ -1998,7 +2111,7 @@ def out_of_core_checks(dev, card: str) -> None:
     what = f"sort_kv_large f32 keys, i32 values n={n}"
     ks, vs = timed(what, lambda: sortx_torch.sort_kv_large(
         kf, vi, chunk_elems=chunk, device=dev), n)
-    check_chunk_launches(what, n, chunk, 3, 2)
+    check_chunk_launches(what, n, chunk, 32)
     order = torch.sort(radix_image(fk), stable=True).indices
     check(torch.equal(torch.from_numpy(ks.view(np.int32)).to(dev),
                       fk.view(torch.int32)[order])
@@ -2015,7 +2128,7 @@ def out_of_core_checks(dev, card: str) -> None:
     what = f"sort_large u32 sort_bits=16 descending n={n}"
     out = timed(what, lambda: sortx_torch.sort_large(
         host, 16, descending=True, chunk_elems=chunk, device=dev), n)
-    check_chunk_launches(what, n, chunk, 3, 2)
+    check_chunk_launches(what, n, chunk, 16)
     order = torch.sort((~card_keys) & 0xFFFF, stable=True).indices
     check(torch.equal(torch.from_numpy(out.view(np.int32)).to(dev),
                       card_keys[order]),
@@ -2495,7 +2608,7 @@ def dist_one_rank(dev, card: str) -> dict:
               f"dist_scan n={N}, world size 1 == scan, the same total")
         del out, ks, vs, s
         counts = read_launches("distributed, world size 1",
-                               NETWORK + ("scan",))
+                               RADIX + ("scan",))
         for what, dist_fn, one in (
                 ("sort u32", lambda: sortx_torch.dist_sort(keys, mesh=mesh),
                  lambda: sortx_torch.sort(keys)),
@@ -3112,7 +3225,7 @@ def main() -> None:
             counts[name] += c
     took("dist cards")
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": counts[name],
+                "replaces": replaces, "launches": counts.get(name, 0),
                 "max_abs_err": err[name], "ms": ms[name][0],
                 "plain_ms": ms[name][1], **extra[name]}
                for name, (src, replaces) in KERNELS.items()]

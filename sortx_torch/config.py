@@ -18,11 +18,11 @@ import dataclasses
 import os
 
 __all__ = ["Config", "ENGINES", "LOG_BLOCK_MAX", "default_config",
-           "resolve_engine", "set_default_config"]
+           "device_engine", "resolve_engine", "set_default_config"]
 
 # Engine names of sortx's Config and the port's own -> the port's engine.
 ENGINES = {"auto": "auto", "pallas": "network", "network": "network",
-           "hybrid": "hybrid", "host": "host"}
+           "radix": "radix", "hybrid": "hybrid", "host": "host"}
 
 # Largest shared-memory block (log2 elements) the bitonic block kernels
 # take: one stream of 2^15 u32 is 128 KB of the 227 KB a CTA may hold.
@@ -38,8 +38,13 @@ class Config:
       kernels (their plain PyTorch versions for CPU tensors); "hybrid"
       runs the sample-sort engine (row-network phases and the run mover,
       ops/sort_hybrid.py); "host" runs the stable ``torch.sort`` engine;
-      "auto" picks the network for CUDA tensors and the host engine for
-      CPU tensors.
+      "radix" runs the one-sweep LSD radix sort (ops/radix.py: K9, K10;
+      their plain versions for CPU tensors) for ``sort`` and ``sort_kv``
+      of 32-bit and narrower keys with at most one value word, and the
+      network for everything else; "auto" picks the radix engine for a
+      stable ``sort`` / ``sort_kv`` it serves on a CUDA tensor
+      (``ops/sort.py:sort_engine``), otherwise the network for CUDA
+      tensors and the host engine for CPU tensors.
     scan_tile_elems: the scan's tile in ``sortx`` (a positive multiple
       of 1024), carried so that a converted config keeps it. The scan's
       output does not depend on it, and the scan kernel picks its own
@@ -83,8 +88,8 @@ class Config:
     dist_exchange: str = "a2a"
 
     def __post_init__(self):
-        if self.engine not in ("auto", "network", "hybrid", "host"):
-            raise ValueError("engine must be auto|network|hybrid|host")
+        if self.engine not in ("auto", "network", "radix", "hybrid", "host"):
+            raise ValueError("engine must be auto|network|radix|hybrid|host")
         for name in ("scan_tile_elems", "sort_tile_elems",
                      "engine_chunk_elems"):
             v = getattr(self, name)
@@ -107,10 +112,17 @@ class Config:
 
 
 def resolve_engine(cfg: Config, t) -> str:
-    """"network", "hybrid" or "host" for tensor ``t`` under ``cfg``."""
-    if cfg.engine != "auto":
-        return cfg.engine
-    return "network" if t.device.type == "cuda" else "host"
+    """"network", "hybrid" or "host" for tensor ``t`` under ``cfg``: the
+    engine of every op but the radix path of ``sort`` / ``sort_kv``."""
+    return device_engine(cfg, t.device.type)
+
+
+def device_engine(cfg: Config, device_type: str) -> str:
+    """:func:`resolve_engine` for a tensor on a device of this type
+    ("cuda" or "cpu"); "radix" runs the network here."""
+    if cfg.engine == "auto":
+        return "network" if device_type == "cuda" else "host"
+    return "network" if cfg.engine == "radix" else cfg.engine
 
 
 _env_engine = os.environ.get("SORTX_ENGINE", "auto")

@@ -72,6 +72,11 @@ _ENTRIES = {
     # (src, out, src_len, piece_src, piece_dst_off, piece_len,
     #  chunk_first, chunk_count, out_len, chunk, stream)
     "sortx_apply_pieces": (_P, _P, _L, _P, _P, _P, _P, _P, _L, _L, _P),
+    # (keys, n, bits, scratch, scratch_words, stream)
+    "sortx_radix_histogram": (_P, _L, _I, _P, _L, _P),
+    # (keys_in, keys_out, values_in, values_out, n, shift, digit_bits,
+    #  offsets, region, region_words, stream)
+    "sortx_radix_onesweep": (_P, _P, _P, _P, _L, _I, _I, _P, _P, _L, _P),
 }
 
 

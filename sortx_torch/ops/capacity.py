@@ -6,7 +6,8 @@ card's memory, its total as ``torch.cuda.get_device_properties`` gives
 it, read once a device (no memory query per sort, so a sort can be
 captured in a CUDA graph). The network pads to a
 power of two (at least 1024) and holds padded * 4 B * streams * 2
-(:func:`network_bytes`); the hybrid counts its own buffers
+(:func:`network_bytes`); the radix engine two buffers a stream and its
+scratch (:func:`radix_bytes`); the hybrid counts its own buffers
 (``ops/sort_hybrid.py:hybrid_bytes``). The reference's public
 ``check_device_capacity(n, n_streams)`` is ``ops/out_of_core.py``'s.
 """
@@ -18,14 +19,22 @@ import functools
 import torch
 
 from ..utils.errors import CapacityError
+from .radix import scratch_words
 
-__all__ = ["check_device_bytes", "network_bytes"]
+__all__ = ["check_device_bytes", "network_bytes", "radix_bytes"]
 
 
 def network_bytes(n: int, n_streams: int) -> int:
     """Device bytes the network holds for a sort of n with n_streams."""
     padded = 1 << max((n - 1).bit_length(), 10)
     return padded * 4 * n_streams * 2
+
+
+def radix_bytes(n: int, n_streams: int) -> int:
+    """Device bytes the radix engine holds for a sort of n with n_streams
+    (keys, or keys and one value word): two buffers a stream, and the
+    scratch of four passes."""
+    return n * 4 * n_streams * 2 + 4 * scratch_words(n, 4)
 
 
 @functools.cache

@@ -13,9 +13,15 @@ lexicographic order is the keys' order (:func:`_to_radix_u64`; f64 with
 the same total order as f32) and sort through ``sort_u64`` /
 ``sort_kv_u64`` (ops/extras.py): one network pass over both words.
 
-Engines: "network" (the bitonic network), "hybrid" (the sample sort,
-always stable; 64-bit values take the host engine, as ``sortx`` sends
-them to XLA), "host" (``torch.sort``); see ``config.py``.
+Engines: "radix" (the one-sweep LSD radix sort, ``ops/radix.py``),
+"network" (the bitonic network), "hybrid" (the sample sort, always
+stable; 64-bit values take the host engine, as ``sortx`` sends them to
+XLA), "host" (``torch.sort``); see ``config.py``. :func:`sort_engine`
+picks one from what the call's input shows: under "auto" a CUDA tensor
+takes the radix engine for a stable sort of keys of at most 32 bits with
+at most one value word (n < 2^30), and the network otherwise, so
+``stable=False``, 64-bit keys or values and the ops built on the
+network (rows, ``merge``, ``dist_sort``) keep it.
 
 Ordered inputs take the reference's short cuts (``lax.cond`` in
 ``sortx/ops/sort_pallas.py:343-350, 442-445``): keys whose sort key is
@@ -28,24 +34,26 @@ read nothing on the host and can be captured in a CUDA graph. The
 hybrid engine reads the flags on the host, as it reads its bucket
 totals, and refuses to run under capture. The host engine takes no short
 cut: a stable sort of ordered keys is the identity or, for keys alone,
-the reversal, so its bits are the same.
+the reversal, so its bits are the same. Nor does the radix engine, for
+the same reason: it computes no order flags.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..config import Config, default_config, resolve_engine
+from ..config import Config, default_config, device_engine
 from ..runtime.launcher import profiled
 from ..utils.words import (NONDECREASING, NONINCREASING, SIGN, join64,
                            order_flags, split64)
-from .capacity import check_device_bytes, network_bytes
+from .capacity import check_device_bytes, network_bytes, radix_bytes
+from .radix import RADIX_MAX_N, sort_kv_radix, sort_radix
 from .sort_host import sort_host, sort_kv_host
 from .sort_hybrid import (hybrid_bytes, refuse_capture, sort_hybrid,
                           sort_kv_hybrid)
 from .sort_network import network_streams, sort_kv_network, sort_network
 
-__all__ = ["sort", "sort_kv"]
+__all__ = ["sort", "sort_kv", "sort_engine"]
 
 _KEYS32 = (torch.uint32, torch.int32, torch.float32)
 # 16-bit keys widen exactly to their 32-bit counterpart.
@@ -182,6 +190,21 @@ def _value_words(values: torch.Tensor):
             lambda w: w.to(narrow).view(values.dtype))
 
 
+def sort_engine(cfg: Config, device_type: str, dtype: torch.dtype, n: int,
+                *, stable: bool = True, value_words: int = 0) -> str:
+    """The engine of a ``sort`` (``value_words`` 0) or ``sort_kv`` of n
+    keys of ``dtype`` on a device of ``device_type``: "radix" where it is
+    asked for, or under "auto" on a CUDA tensor for a stable sort, if the
+    radix engine serves the call (keys of at most 32 bits, at most one
+    value word, n < 2^30); otherwise the engine every op resolves to."""
+    serves = (dtype not in _DTYPES64 and n < RADIX_MAX_N
+              and value_words <= 1)
+    if serves and (cfg.engine == "radix" or cfg.engine == "auto"
+                   and device_type == "cuda" and stable):
+        return "radix"
+    return device_engine(cfg, device_type)
+
+
 def _order_mask(sort_bits: int) -> int:
     """All ones over the participating key bits, as an int32 word."""
     return -1 if sort_bits >= 32 else (1 << sort_bits) - 1
@@ -223,8 +246,11 @@ def sort(keys: torch.Tensor, sort_bits: int | None = None, *,
     k, undo = _to_radix_u32(keys.contiguous())
     if descending:
         k = k ^ _order_mask(sort_bits)
-    engine = resolve_engine(cfg, keys)
-    if engine == "host":
+    engine = sort_engine(cfg, keys.device.type, keys.dtype, n)
+    if engine == "radix":
+        check_device_bytes(radix_bytes(n, 1), keys.device, f"sort of n={n}")
+        out = sort_radix(k, sort_bits)
+    elif engine == "host":
         out = sort_host(k, sort_bits)
     elif engine == "hybrid":
         refuse_capture("sort")
@@ -276,10 +302,16 @@ def sort_kv(keys: torch.Tensor, values: torch.Tensor,
     v, undo_v = _value_words(values.contiguous())
     if descending:
         k = k ^ _order_mask(sort_bits)
-    engine = resolve_engine(cfg, keys)
+    engine = sort_engine(cfg, keys.device.type, keys.dtype, n,
+                         stable=stable, value_words=len(v))
     if engine == "hybrid":
         refuse_capture("sort_kv")
-    if engine == "host" or (engine == "hybrid" and len(v) > 1):
+    if engine == "radix":
+        check_device_bytes(radix_bytes(n, 2), keys.device,
+                           f"sort_kv of n={n}")
+        ks, vs = sort_kv_radix(k, v[0], sort_bits)
+        vs = (vs,)
+    elif engine == "host" or (engine == "hybrid" and len(v) > 1):
         ks, vs = sort_kv_host(k, v, sort_bits)
     elif engine == "hybrid":
         if _order_on_host(k, sort_bits)[0]:

@@ -10,7 +10,8 @@ the CPU:
 
 - every op of the capture list runs under ``FakeTensorMode`` (which
   raises on a host read of data and on a data-dependent shape) with
-  ``Config(engine="network")``, and makes no tensor from host data
+  ``Config(engine="network")``, and ``sort`` / ``sort_kv`` also with
+  ``Config(engine="radix")``, and makes no tensor from host data
   (on the card that is an upload, which syncs and cannot be captured);
 - each op the reference tests under ``jax.jit`` equals
   ``jax.jit(sortx.<op>)`` bit for bit on the same numpy input;
@@ -43,6 +44,7 @@ from sortx_torch.utils.words import order_flags
 
 HOST = sortx.Config(engine="host")
 NET = sortx_torch.Config(engine="network")
+RADIX = sortx_torch.Config(engine="radix")
 N = 3000
 
 
@@ -139,6 +141,13 @@ OPS = {
                                                  config=NET),
     "histogram per tile": lambda t: sortx_torch.histogram(
         t["u32"], 4, 0, per_tile=True, config=NET),
+    "sort u32 radix": lambda t: sortx_torch.sort(t["u32"], config=RADIX),
+    "sort f32 radix descending": lambda t: sortx_torch.sort(
+        t["f32"], descending=True, config=RADIX),
+    "sort sort_bits=12 radix":
+        lambda t: sortx_torch.sort(t["u32"], 12, config=RADIX),
+    "sort_kv stable radix": lambda t: sortx_torch.sort_kv(
+        t["u32"], t["v32"], config=RADIX),
     "sort_rows": lambda t: sortx_torch.sort_rows(t["rows"], config=NET),
     "sort_kv_rows": lambda t: sortx_torch.sort_kv_rows(
         t["rows"], t["rvals"], config=NET),

@@ -13,6 +13,7 @@ import torch
 
 import sortx_torch
 from sortx_torch.ops import bitonic as tb
+from sortx_torch.ops import radix as rx
 from sortx_torch.ops import sort_hybrid
 from sortx_torch.ops._build import launches
 from sortx_torch.ops.radix_kernels import histogram_plain, tile_histogram
@@ -865,8 +866,10 @@ def test_sort_large_chunks_on_the_card(dev):
     launches.clear()
     np.testing.assert_array_equal(sortx_torch.sort_large(k, chunk_elems=chunk),
                                   np.sort(k))
-    assert launches["bitonic_block"] == 4
-    assert launches["bitonic_tail"] > 0 and launches["bitonic_global"] > 0
+    # each chunk is a radix sort: K9 and four K10 passes, no network
+    assert launches["radix_histogram"] == 4
+    assert launches["radix_onesweep"] == 16
+    assert launches["bitonic_block"] == 0
     kf = rng.randn(n).astype(np.float32)
     v = np.arange(n, dtype=np.int32)
     ks, vs = sortx_torch.sort_kv_large(kf, v, chunk_elems=chunk,
@@ -895,7 +898,8 @@ def test_kernel_rows_equal_launches(dev, tmp_path):
     rows = collections.Counter(r.split(",")[0]
                                for r in csv.read_text().splitlines())
     assert rows.pop("sort_kv") == 1
-    assert rows == collections.Counter(launches) and len(rows) == 3
+    # the radix engine: K9 once, K10 once a pass
+    assert rows == collections.Counter(launches) and len(rows) == 2
 
 
 def test_no_rows_while_a_graph_is_captured(dev, tmp_path):
@@ -1257,3 +1261,206 @@ def test_dist_ops_across_cards_match_the_single_card_ops(dev, tmp_path):
         assert all(res["launches"].get(k, 0) > 0 for k in
                    ("bitonic_block", "bitonic_tail", "bitonic_global",
                     "scan")), res
+
+
+# --- the radix engine: K9 and K10 ------------------------------------------
+
+def _radix_words(kind, n, dev, seed=0):
+    """n u32 words (int32) on the card: uniform, CUB's entropy 0.201 (the
+    AND of five uniform words) or all equal."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def uniform():
+        return torch.randint(-2**31, 2**31, (n,), generator=g, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+    if kind == "all equal":
+        return torch.full((n,), 0x5A5A5A5A, dtype=torch.int32, device=dev)
+    k = uniform()
+    if kind == "entropy 0.201":
+        for _ in range(4):
+            k &= uniform()
+    return k
+
+
+def _radix_walk(keys, bits, values):
+    """K9, then each K10 pass, each against its plain version on the same
+    input; returns the last pass's (keys, values)."""
+    n = keys.shape[0]
+    before = launches["radix_histogram"], launches["radix_onesweep"]
+    scratch = torch.empty(rx.scratch_words(n, rx.radix_passes(bits)),
+                          dtype=torch.int32, device=keys.device)
+    offsets = rx.radix_histogram(keys, bits, scratch)
+    want = rx.offsets_plain(keys, bits)
+    torch.cuda.synchronize()
+    assert torch.equal(offsets, want)
+    src, vsrc = keys, values
+    for p in range(rx.radix_passes(bits)):
+        db = min(8, bits - 8 * p)
+        region = torch.zeros(rx.scratch_words(n, 1), dtype=torch.int32,
+                             device=keys.device)
+        out = torch.empty_like(src)
+        vout = None if values is None else torch.empty_like(values)
+        rx.radix_onesweep(src, out, want[p].contiguous(), 8 * p, db,
+                          region=region, values=vsrc, values_out=vout)
+        pk, pv = rx.onesweep_plain(src, 8 * p, db, want[p], vsrc)
+        torch.cuda.synchronize()
+        assert torch.equal(out, pk), (p, db)
+        assert values is None or torch.equal(vout, pv), (p, db)
+        src, vsrc = out, vout
+    passes = rx.radix_passes(bits)
+    assert (launches["radix_histogram"], launches["radix_onesweep"]) == (
+        before[0] + 1, before[1] + passes)
+    return src, vsrc
+
+
+@pytest.mark.parametrize("kv", [False, True])
+@pytest.mark.parametrize("bits", [32, 12])
+@pytest.mark.parametrize("n", [1 << 20, 1 << 27, (1 << 26) + 13])
+def test_radix_kernels_match_plain(dev, n, bits, kv):
+    keys = _radix_words("uniform", n, dev, seed=n + bits)
+    values = (torch.arange(n, dtype=torch.int32, device=dev) if kv
+              else None)
+    ks, vs = _radix_walk(keys, bits, values)
+    order = torch.sort(keys.to(torch.int64) & ((1 << bits) - 1),
+                       stable=True).indices
+    assert torch.equal(ks, keys[order])
+    assert vs is None or torch.equal(vs, values[order])
+
+
+@pytest.mark.parametrize("bits", [32, 9, 3])
+@pytest.mark.parametrize("kind", ["entropy 0.201", "all equal"])
+@pytest.mark.parametrize("n", [1, 4095, 4097, (1 << 20) + 7])
+def test_radix_kernels_on_tied_words_match_plain(dev, n, kind, bits):
+    keys = _radix_words(kind, n, dev, seed=3)
+    _radix_walk(keys, bits, torch.arange(n, dtype=torch.int32, device=dev))
+
+
+RADIX_CALLS = {   # name -> op(keys, values, config)
+    "sort u32": lambda k, v, c: sortx_torch.sort(k.view(torch.uint32),
+                                                 config=c),
+    "sort i32 descending": lambda k, v, c: sortx_torch.sort(
+        k, descending=True, config=c),
+    "sort f32": lambda k, v, c: sortx_torch.sort(k.view(torch.float32),
+                                                 config=c),
+    "sort bf16": lambda k, v, c: sortx_torch.sort(
+        k.view(torch.bfloat16)[::2].contiguous(), config=c),
+    "sort sort_bits=20": lambda k, v, c: sortx_torch.sort(
+        k.view(torch.uint32), 20, config=c),
+    "sort_kv stable": lambda k, v, c: sortx_torch.sort_kv(
+        k.view(torch.uint32), v, config=c),
+    "sort_kv stable int16 values descending": lambda k, v, c:
+        sortx_torch.sort_kv(k, v.to(torch.int16), descending=True, config=c),
+    "sort_kv stable sort_bits=9": lambda k, v, c: sortx_torch.sort_kv(
+        k.view(torch.uint32), v, 9, config=c),
+}
+NETWORK = sortx_torch.Config(engine="network")
+
+
+@pytest.mark.parametrize("kind", ["uniform", "entropy 0.201"])
+@pytest.mark.parametrize("n", [1 << 20, (1 << 22) + 13])
+@pytest.mark.parametrize("op", sorted(RADIX_CALLS))
+def test_auto_takes_the_radix_engine_and_equals_the_network(dev, op, n,
+                                                            kind):
+    """Under "auto" a stable sort of a CUDA tensor runs K9 and K10 and
+    no network pass, and gives the network engine's bits."""
+    keys = _radix_words(kind, n, dev, seed=7)
+    vals = torch.arange(n, dtype=torch.int32, device=dev).flip(0)
+    want = RADIX_CALLS[op](keys, vals, NETWORK)
+    torch.cuda.synchronize()
+    launches.clear()
+    got = RADIX_CALLS[op](keys, vals, None)
+    torch.cuda.synchronize()
+    assert _same_tree(got, want)
+    assert launches["radix_histogram"] == 1 and launches["radix_onesweep"] > 0
+    assert not any(launches[k] for k in ("bitonic_block", "bitonic_tail",
+                                         "bitonic_global", "reverse"))
+
+
+@pytest.mark.parametrize("op", ["sort", "sort_kv"])
+def test_radix_capture_and_replay(dev, op):
+    """The radix path captured once under "auto" (one memset, K9, four
+    K10 launches) and replayed on random, sorted, reversed and all-equal
+    keys: each replay equals the network engine's eager call."""
+    n = (1 << 20) + 13
+    run = GRAPH_OPS[op][0]
+    static = {"k": _graph_keys("random", n, dev),
+              "v": torch.arange(n, dtype=torch.int32, device=dev).flip(0)}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run(static)
+    torch.cuda.current_stream().wait_stream(side)
+    launches.clear()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run(static)
+    assert launches["radix_histogram"] == 1
+    assert launches["radix_onesweep"] == 4
+    for kind in GRAPH_KINDS:
+        static["k"].copy_(_graph_keys(kind, n, dev, 2))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_tree(out, run(static, NETWORK)), kind
+
+
+def _gloo_dist_rank(rank: int, d: int, tmp: str, n: int) -> None:
+    """One of d gloo ranks sharing card 0: dist_sort and stable
+    dist_sort_kv of its shard under "auto", held against its slice of
+    the single-card ops; writes the local engine and merge it took."""
+    import datetime
+    import importlib
+    import json
+
+    import torch.distributed as dist
+
+    from sortx_torch.parallel import shard_1d
+
+    ds = importlib.import_module("sortx_torch.parallel.dist_sort")
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            world_size=d, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        dev = torch.device("cuda", 0)
+        mesh = sortx_torch.make_sort_mesh()
+        keys = _radix_words("uniform", n, dev, seed=5).view(torch.uint32)
+        vals = torch.arange(n, dtype=torch.int32, device=dev)
+        wk, wv = sortx_torch.sort_kv(keys, vals)
+        launches.clear()
+        out = sortx_torch.dist_sort(shard_1d(keys, mesh).clone(), mesh=mesh)
+        res = {"engine": ds.last_local_engine, "merge": ds.last_local_merge}
+        ks, vs = sortx_torch.dist_sort_kv(shard_1d(keys, mesh).clone(),
+                                          shard_1d(vals, mesh).clone(),
+                                          mesh=mesh)
+        res.update(
+            sort=torch.equal(out.view(torch.int32),
+                             shard_1d(wk, mesh).view(torch.int32)),
+            sort_kv=(torch.equal(ks.view(torch.int32),
+                                 shard_1d(wk, mesh).view(torch.int32))
+                     and torch.equal(vs, shard_1d(wv, mesh))),
+            kv_engine=ds.last_local_engine, kv_merge=ds.last_local_merge,
+            launches=dict(launches))
+        with open(f"{tmp}/rank{rank}.json", "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_four_rank_dist_sort_stays_on_the_network(dev, tmp_path):
+    """dist_sort's local sorts and merge under "auto" are the network's
+    and the merge tree, as before the radix engine: four gloo ranks
+    sharing the card, 2^18 keys in all."""
+    import json
+
+    import torch.multiprocessing as mp
+
+    d = 4
+    mp.spawn(_gloo_dist_rank, args=(d, str(tmp_path), 1 << 18), nprocs=d,
+             join=True)
+    for r in range(d):
+        res = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert res["sort"] and res["sort_kv"], res
+        assert (res["engine"], res["merge"]) == ("bitonic", "tree"), res
+        assert (res["kv_engine"], res["kv_merge"]) == ("bitonic", "tree"), res
+        assert res["launches"].get("bitonic_global", 0) > 0, res
+        assert res["launches"].get("radix_onesweep", 0) == 0, res
