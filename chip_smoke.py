@@ -448,9 +448,12 @@ def scan_checks(rng, dev, err: dict) -> None:
 def rows_walks(rng, dev, err: dict) -> None:
     """K1-K3 in rows mode: the pass plans of sort_rows / sort_kv_rows
     (2048 x 2^16), top_k's tournament rows (2^17 x 1024, keys alone and
-    with indices) and the hybrid's
-    phases at 2^27 (A: 64 tiles of 2^21; B: 564 buckets of 2^18), each
-    pass against its plain version; then every row must be sorted."""
+    with indices, the latter as sort_rows with indices runs them: two
+    streams, both compared), the top-p sampler's sort_rows with indices
+    (256 x 2^17: K1 at the block, then K3 and K2 with the row's last stage
+    forced ascending) and the hybrid's phases at 2^27 (A: 64 tiles of
+    2^21; B: 564 buckets of 2^18), each pass against its plain version;
+    then every row must be sorted."""
     # n = 2^27 keys, or the hybrid's phase shapes for it
     S, L, B, cap, _, _ = hy._params(N, HYBRID)
     log_l, log_cap = L.bit_length() - 1, cap.bit_length() - 1
@@ -459,7 +462,9 @@ def rows_walks(rng, dev, err: dict) -> None:
             (1, 1, N, log_row, "sort_rows"),
             (3, 2, N, log_row, "sort_kv_rows"),
             (1, 1, N, 10, "top_k rows of 1024"),
-            (3, 2, N, 10, "top_k tournament with indices, rows of 1024"),
+            (2, 2, N, 10, "top_k tournament with indices, rows of 1024"),
+            (2, 2, 256 << 17, 17,
+             "sort_rows with indices: the sampler's 256 x 2^17"),
             (1, 1, S * L, log_l, f"hybrid phase A keys, {S} x {L}"),
             (3, 2, S * L, log_l, "hybrid phase A stable KV"),
             (1, 1, B * cap, log_cap, f"hybrid phase B keys, {B} x {cap}"),
@@ -754,8 +759,9 @@ def hybrid_path(dev) -> dict:
 
 
 def rows_path(dev) -> dict:
-    """Phase 5: sort_rows and sort_kv_rows on 2048 x 2^16 (and a ragged
-    2048 x 50000) against torch.sort(dim=1, stable=True)."""
+    """Phase 5: sort_rows (also with indices) and sort_kv_rows on
+    2048 x 2^16 (and a ragged 2048 x 50000) against torch.sort(dim=1,
+    stable=True)."""
     rng = np.random.RandomState(SEED + 5)
     _build.launches.clear()
     for B, L in (ROWS, RAGGED_ROWS):
@@ -766,6 +772,13 @@ def rows_path(dev) -> dict:
         out = sortx_torch.sort_rows(keys.view(torch.uint32))
         check(torch.equal(u64(out), ref.values),
               f"sort_rows {B} x {L} == torch.sort(dim=1)")
+        out, idx = sortx_torch.sort_rows(keys.view(torch.uint32),
+                                         return_indices=True)
+        check(torch.equal(u64(out), ref.values)
+              and torch.equal(idx, ref.indices.to(torch.int32)),
+              f"sort_rows {B} x {L} with indices == torch.sort(dim=1, "
+              "stable=True)")
+        del idx
         ks, vs = sortx_torch.sort_kv_rows(keys.view(torch.uint32), values)
         check(torch.equal(u64(ks), ref.values)
               and torch.equal(vs, values.gather(1, ref.indices)),

@@ -8,6 +8,9 @@ row, so sorting all rows ascending is the network in rows mode
 
 ``sort_kv_rows`` carries the in-row position as a second key stream,
 (key, pos, value) with two keys, so equal keys keep their in-row order.
+``sort_rows(..., return_indices=True)`` runs (key, pos) and returns the
+position stream itself as the indices: two streams, where
+``sort_kv_rows`` with an ``arange`` payload would carry three.
 The same row network (``ops/sort_network.py:network_rows``) is the
 hybrid engine's phase sorter, which is why it takes any number of
 payload streams.
@@ -45,21 +48,28 @@ def _check(keys: torch.Tensor) -> None:
 
 @profiled("sort_rows")
 def sort_rows(keys: torch.Tensor, *, descending: bool = False,
-              config: Config | None = None) -> torch.Tensor:
+              return_indices: bool = False, config: Config | None = None):
     """Sort every row of a [B, L] tensor independently.
 
     Keys follow the dtype contract of ``sort`` (u32/i32/f32 and 16-bit
-    keys); batch and row length are free."""
+    keys); batch and row length are free. With ``return_indices``
+    returns (sorted keys, indices): the int32 [B, L] in-row position of
+    the key in each output slot, equal keys in ascending position (also
+    under ``descending``), as a stable ``torch.sort`` gives them."""
     cfg = config or default_config()
     _check(keys)
     B, L = keys.shape
     if B == 0 or L <= 1:
+        if return_indices:
+            return keys, torch.zeros(keys.shape, dtype=torch.int32,
+                                     device=keys.device)
         return keys
     k, undo = _to_radix_u32(keys.contiguous())
     if descending:
         k = ~k
-    out = _rows_engine(cfg, keys)([k])[0]
-    return undo(~out if descending else out)
+    out, *idx = _rows_engine(cfg, keys)([k], positions=return_indices)
+    out = undo(~out if descending else out)
+    return (out, idx[0]) if return_indices else out
 
 
 @profiled("sort_kv_rows")

@@ -25,7 +25,7 @@ from ..runtime.launcher import profiled
 from ..utils.words import wrap_i32
 from .extras import sort_u64
 from .histogram import digit_counts
-from .rows import sort_kv_rows, sort_rows
+from .rows import sort_rows
 from .sort import _check_keys, _to_radix_u32, sort
 
 __all__ = ["kth_value", "median", "top_k"]
@@ -104,10 +104,13 @@ def top_k(keys: torch.Tensor, k: int, *, return_indices: bool = False,
         # the tail beyond B*L rides along as candidates
         body = u[:BL].view(B, L).view(torch.uint32)
         if return_indices:
-            idx = torch.arange(BL, dtype=torch.int32, device=dev).view(B, L)
-            rk, ri = sort_kv_rows(body, idx, descending=True, config=cfg)
+            # in-row indices plus each row's start: the flat indices
+            rk, ri = sort_rows(body, descending=True, return_indices=True,
+                               config=cfg)
+            starts = torch.arange(0, BL, L, dtype=torch.int32,
+                                  device=dev).view(B, 1)
             cand_idx = torch.cat([
-                ri[:, :k].reshape(-1),
+                (ri[:, :k] + starts).reshape(-1),
                 torch.arange(BL, n, dtype=torch.int32, device=dev)])
         else:
             rk = sort_rows(body, descending=True, config=cfg)

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..runtime.launcher import span
 from ..utils.words import as_u64, join64, ordered
 
 __all__ = ["sort_host", "sort_kv_host", "host_rows", "sort_multi_host"]
@@ -40,12 +41,15 @@ def sort_kv_host(keys: torch.Tensor, values, sort_bits: int = 32):
     return keys[idx], tuple(v[idx] for v in values)
 
 
-def host_rows(rows):
+def host_rows(rows, positions: bool = False):
     """Stable ``torch.sort`` of each row of the (R, L) int32 word tensors
     ``rows`` by the unsigned order of ``rows[0]``, the others gathered
-    along (the host counterpart of ``sort_network.network_rows``)."""
-    idx = torch.sort(as_u64(rows[0]), dim=1, stable=True).indices
-    return [r.gather(1, idx) for r in rows]
+    along (the host counterpart of ``sort_network.network_rows``); with
+    ``positions`` the sort's in-row indices, as int32, come back last."""
+    with span("engine", "rows"):
+        idx = torch.sort(as_u64(rows[0]), dim=1, stable=True).indices
+        out = [r.gather(1, idx) for r in rows]
+        return out + [idx.to(torch.int32)] if positions else out
 
 
 def sort_multi_host(words) -> torch.Tensor:

@@ -19,8 +19,8 @@ value word: one more stream, and under unstable KV at ragged n one more
 key, (key, hi, lo).
 
 The row sorts (``sort_rows``, the hybrid engine's phases) run the
-network in rows mode over (key) or (key, pos, payloads...) rows:
-:func:`network_rows`.
+network in rows mode over (key), (key, pos) or (key, pos, payloads...)
+rows: :func:`network_rows`, the span ``engine.rows``.
 
 The network runs at every n >= 2. Ordered inputs take the reference's
 short cuts on the device (``sortx/ops/sort_pallas.py:343-350, 442-445``):
@@ -160,28 +160,35 @@ def sort_kv_network(keys: torch.Tensor, values, sort_bits: int,
         return out[2], out[3:]
 
 
-def network_rows(rows):
+def network_rows(rows, positions: bool = False):
     """Sort every row of the (R, L) int32 word tensors ``rows`` by the
     unsigned order of ``rows[0]`` on the row network; the other tensors
     follow, and with any of them equal keys keep their order (the
-    in-row position joins the comparator). Returns the sorted tensors."""
-    R, L = rows[0].shape
-    Lp = 1 << max((L - 1).bit_length(), 1)
-    stable = len(rows) > 1
-    ns = len(rows) + stable
-    n = R * Lp
-    total = cdiv(n, 1 << block_log(ns)) << block_log(ns)
-    x = torch.full((ns, total), FF, dtype=torch.int32,
-                   device=rows[0].device)
-    x[0, :n].view(R, Lp)[:, :L] = rows[0]
-    if stable:
-        # pads past L in a row hold key 0xFFFFFFFF and a position >= L,
-        # so they stay behind the row's real 0xFFFFFFFF keys
-        x[1, :n].view(R, Lp)[:] = torch.arange(Lp, dtype=torch.int32,
-                                                device=x.device)
-        for t, r in enumerate(rows[1:], 2):
-            x[t, :n].view(R, Lp)[:, :L] = r
-    bitonic_sort_streams(x, 2 if stable else 1, n_valid=n,
-                         row_log=Lp.bit_length() - 1)
-    out = [x[t, :n].view(R, Lp)[:, :L] for t in range(ns)]
-    return [out[0]] + out[2:]
+    in-row position joins the comparator). Returns the sorted tensors.
+
+    With ``positions`` the position stream joins the comparator even
+    where ``rows`` is the key alone, and comes back last: the int32
+    in-row position of each output slot's key (``sort_rows(...,
+    return_indices=True)``; no payload stream carries it)."""
+    with span("engine", "rows"):
+        R, L = rows[0].shape
+        Lp = 1 << max((L - 1).bit_length(), 1)
+        stable = len(rows) > 1 or positions
+        ns = len(rows) + stable
+        n = R * Lp
+        total = cdiv(n, 1 << block_log(ns)) << block_log(ns)
+        x = torch.full((ns, total), FF, dtype=torch.int32,
+                       device=rows[0].device)
+        x[0, :n].view(R, Lp)[:, :L] = rows[0]
+        if stable:
+            # pads past L in a row hold key 0xFFFFFFFF and a position
+            # >= L, so they stay behind the row's real 0xFFFFFFFF keys
+            x[1, :n].view(R, Lp)[:] = torch.arange(Lp, dtype=torch.int32,
+                                                    device=x.device)
+            for t, r in enumerate(rows[1:], 2):
+                x[t, :n].view(R, Lp)[:, :L] = r
+        bitonic_sort_streams(x, 2 if stable else 1, n_valid=n,
+                             row_log=Lp.bit_length() - 1)
+        out = [x[t, :n].view(R, Lp)[:, :L] for t in range(ns)]
+        return [out[0]] + out[2:] + ([out[1].contiguous()] if positions
+                                     else [])

@@ -29,7 +29,12 @@ port's layers open record-function ranges named
 kernels:
 
   - ``api.<op>``: every public op (``@profiled``);
-  - ``engine.network``: the network engine (``ops/sort_network.py``);
+  - ``engine.network``, ``engine.radix``: the 1-D engines
+    (``ops/sort_network.py``, ``ops/radix.py``);
+  - ``engine.rows``: the rows engine of ``sort_rows`` / ``sort_kv_rows``
+    and the hybrid's phases (``sort_network.network_rows``: staging into
+    the padded buffer, the row network, unstaging; or
+    ``sort_host.host_rows``);
   - ``driver.bitonic``: the pass plan and its loop (``ops/bitonic.py``);
   - ``launch.<kernel>``: each kernel launch (``ops/_build.py:launch``);
   - ``dist.<step>``: each step of the distributed sort

@@ -149,6 +149,8 @@ OPS = {
     "sort_kv stable radix": lambda t: sortx_torch.sort_kv(
         t["u32"], t["v32"], config=RADIX),
     "sort_rows": lambda t: sortx_torch.sort_rows(t["rows"], config=NET),
+    "sort_rows with indices": lambda t: sortx_torch.sort_rows(
+        t["rows"], descending=True, return_indices=True, config=NET),
     "sort_kv_rows": lambda t: sortx_torch.sort_kv_rows(
         t["rows"], t["rvals"], config=NET),
 }

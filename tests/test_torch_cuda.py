@@ -7,11 +7,14 @@ run on a machine that has neither:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 import sortx_torch
+from portbench import spec
 from sortx_torch.ops import bitonic as tb
 from sortx_torch.ops import radix as rx
 from sortx_torch.ops import sort_hybrid
@@ -21,6 +24,11 @@ from sortx_torch.ops.scan import scan_plain, tile_scan
 from sortx_torch.ops.shuffle import (CHUNK_ELEMS, apply_runs,
                                      apply_runs_plain, build_piece_plan,
                                      move_runs, move_runs_plain)
+
+# the plain reference of the benchmark's sampler cell
+REF = spec.load_module(Path(__file__).resolve().parents[1] / "portbench" /
+                       "reference" / "topp_rows.py")
+probabilities, sort_probs = REF.probabilities, REF.sort_probs
 
 pytestmark = pytest.mark.cuda
 
@@ -160,6 +168,37 @@ def test_sort_kv_rows_matches_host(dev, L):
     want = sortx_torch.sort_kv_rows(k, v, descending=True)
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("L", [1000, 1 << 12])
+def test_sort_rows_indices_match_host(dev, L):
+    k = _words(L + 1, (300, L))
+    got = sortx_torch.sort_rows(k.to(dev), descending=True,
+                                return_indices=True)
+    want = sortx_torch.sort_rows(k, descending=True, return_indices=True)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_topp_rows_at_the_vocabulary_width(dev):
+    """The top-p sampler's row sort, 256 x 129,280 float32 probabilities
+    descending with their indices, against the plain reference
+    (``portbench/reference/topp_rows.py``) bit for bit, in the 9 launches
+    of the row network at two streams (K1, 4 x K3, 4 x K2)."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    words = torch.randint(-2**31, 2**31, (256 * 129_280,),
+                          dtype=torch.int32, generator=gen, device=dev)
+    probs = probabilities(words, 129_280)
+    want_p, want_i = sort_probs(probs)
+    torch.cuda.synchronize()
+    launches.clear()
+    got_p, got_i = sortx_torch.sort_rows(probs, descending=True,
+                                         return_indices=True)
+    torch.cuda.synchronize()
+    assert dict(launches) == {"bitonic_block": 1, "bitonic_global": 4,
+                              "bitonic_tail": 4}
+    assert torch.equal(got_p.view(torch.int32), want_p.view(torch.int32))
+    assert torch.equal(got_i, want_i)
 
 
 # --- K5, the tile histogram ----------------------------------------------

@@ -124,12 +124,22 @@ def _call_shape(fn):
             for p in inspect.signature(fn).parameters.values()]
 
 
+# Keyword-only parameters the port adds to an op of the reference:
+# sort_rows returns the in-row indices beside the keys on request.
+PORT_ONLY = {"sort_rows": ("return_indices",)}
+
+
 def _same_call_shape(port_fn, ref_fn):
     """The reference's parameters, plus at most a keyword-only ``device``
-    at the end."""
+    at the end and the port's own keyword-only parameters of
+    :data:`PORT_ONLY`, each defaulting to what the reference does."""
     got, want = _call_shape(port_fn), _call_shape(ref_fn)
     if got and got[-1][:2] == ("device", inspect.Parameter.KEYWORD_ONLY):
         got = got[:-1]
+    extra = PORT_ONLY.get(port_fn.__name__, ())
+    got = [p for p in got if not (
+        p[0] in extra and p[1] == inspect.Parameter.KEYWORD_ONLY
+        and p[2] is False)]
     return got == want
 
 
