@@ -68,11 +68,16 @@ u32 keys, 512 MB per stream, or 2048 rows of 2^16):
              bit the single-card op on the same tensor; then 2 and 4
              processes sharing the card over gloo (spawned after the
              kernels are built, so they only load them), 2^26 keys in
-             all and a ragged 2^26 + 13: dist_sort with the merge tree
-             and with the ring, stable dist_sort_kv with int32 and with
-             int64 values, and dist_scan, the gathered shards held
-             against the single-card op of the whole input, every rank's
-             K1-K4 launches and the branches it took (its witnesses and
+             all and a ragged 2^26 + 13: dist_sort under "auto" (the
+             radix engine and the re-sort), with the merge tree and with
+             the ring, stable dist_sort_kv with int32 values (radix) and
+             with int64 values (the tree), and dist_scan; the int32
+             dist_sort_kv and the ragged dist_sort also under
+             engine="network" (the tree); the gathered
+             shards held against the single-card op of the whole input,
+             every rank's launches (K9 / K10 and no network pass on the
+             radix engine, K1-K3 on the network) and the branches it
+             took (its witnesses and
              the launcher's step rows), the time of the whole call and
              of each step (not a scaling figure: the ranks share one
              card)
@@ -80,13 +85,18 @@ u32 keys, 512 MB per stream, or 2048 rows of 2^16):
              line): D = min(cards, 4) spawned ranks, one a card, each
              started as torchrun starts one and calling init_multihost()
              with no arguments (NCCL, on card LOCAL_RANK); at 2^27 keys a
-             rank dist_sort with the merge tree and with the ring, stable
-             dist_sort_kv with int32 and int64 values, dist_sort_padded
-             and dist_sort_kv_padded of D * 2^27 + 13 keys and dist_scan
-             with its total; at 2^22 a rank the dense exchange bounded
-             and full, the merges "rank", "native" and "sort", presorted
-             keys that take the tree's and the ring's skew re-sort,
-             all-equal keys, descending, sort_bits=12, n < D and n = 0.
+             rank dist_sort under "auto" (the radix engine, the re-sort),
+             with the merge tree and with the ring, stable dist_sort_kv
+             with int32 (radix) and int64 values (the tree),
+             dist_sort_padded and dist_sort_kv_padded of D * 2^27 + 13
+             keys and dist_scan with its total; at 2^22 a rank the dense
+             exchange bounded and full, the merges "rank", "native" and
+             "sort", presorted keys that take the tree's and the ring's
+             skew re-sort, all-equal keys, descending, sort_bits=12, n <
+             D and n = 0. Each case that runs the radix engine under
+             "auto" (but the plain dist_sort and scan) runs again under
+             engine="network" ("<case> network": the network's local
+             sort, its tree or merge, its position lane).
              Each rank makes the whole global array from the seed on its
              own card, runs the single-card op on it and holds its shard
              bit for bit against its slice; the parent checks every
@@ -2569,12 +2579,21 @@ DIST_REPS = 5
 WHOLE = 2
 SHARED = "processes sharing one card; not a scaling figure"
 TREE = (["ragged", "bitonic", "tree"], "merge tree")
+RESORT = (["ragged", "radix", "sort"], "merge sort")   # "auto" on a card
 DIST_BRANCH = {       # case -> (witness, the step that must have run)
-    "sort tree": TREE, "sort_kv": TREE, "sort_kv i64": TREE,
-    "sort ragged": TREE,
+    "sort": RESORT, "sort tree": TREE, "sort_kv": RESORT,
+    "sort_kv i64": TREE, "sort ragged": RESORT,
     "sort ring": (["ring", "bitonic", "ring"], "exchange + merge ring"),
+    "sort_kv network": TREE, "sort ragged network": TREE,
 }
 SKEW = ("merge sort (tree skew)", "merge sort (ring skew)")
+
+
+def dist_launched(counts: dict, engine: str) -> tuple:
+    """(the kernels a rank's sorts on ``engine`` must have launched,
+    whether it launched none of the other engine's)."""
+    need, other = (RADIX, NETWORK) if engine == "radix" else (NETWORK, RADIX)
+    return need, not any(counts.get(k, 0) for k in other)
 
 
 def dist_same(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -2608,8 +2627,14 @@ def dist_one_rank(dev, card: str) -> dict:
         torch.cuda.synchronize()
         _build.launches.clear()
         out = sortx_torch.dist_sort(keys, mesh=mesh)
-        check(dist_same(out, want), f"dist_sort u32 n={N}, world size 1 "
-              "(NCCL) == sortx_torch.sort")
+        ds = sys.modules["sortx_torch.parallel.dist_sort"]
+        witness = [ds.last_exchange, ds.last_local_engine,
+                   ds.last_local_merge]
+        check(dist_same(out, want) and witness == ["single", "radix",
+                                                    "single"],
+              f"dist_sort u32 n={N}, world size 1 (NCCL) == "
+              f"sortx_torch.sort, witness {witness} (the single-card "
+              "sort's radix engine)")
         ks, vs = sortx_torch.dist_sort_kv(keys, values, mesh=mesh)
         check(dist_same(ks, wks) and dist_same(vs, wvs),
               f"stable dist_sort_kv n={N}, world size 1 == sort_kv")
@@ -2649,9 +2674,13 @@ def dist_cases(mesh, keys, rkeys):
     values64 = sortx_torch.parallel.shard_1d(dist_values64(keys.device),
                                              mesh).clone()
     ring = sortx_torch.Config(dist_exchange="ring")
+    tree = sortx_torch.Config(dist_local_merge="tree")
+    net = sortx_torch.Config(engine="network")
     u = keys.view(torch.uint32)
     return (
-        ("sort tree", lambda: (sortx_torch.dist_sort(u, mesh=mesh),)),
+        ("sort", lambda: (sortx_torch.dist_sort(u, mesh=mesh),)),
+        ("sort tree", lambda: (sortx_torch.dist_sort(u, mesh=mesh,
+                                                     config=tree),)),
         ("sort ring", lambda: (sortx_torch.dist_sort(u, mesh=mesh,
                                                      config=ring),)),
         ("sort_kv", lambda: sortx_torch.dist_sort_kv(u, values, mesh=mesh)),
@@ -2660,7 +2689,11 @@ def dist_cases(mesh, keys, rkeys):
         ("scan", lambda: sortx_torch.dist_scan(keys, with_total=True,
                                                mesh=mesh)),
         ("sort ragged", lambda: (sortx_torch.dist_sort(
-            rkeys.view(torch.uint32), mesh=mesh),)))
+            rkeys.view(torch.uint32), mesh=mesh),)),
+        ("sort_kv network", lambda: sortx_torch.dist_sort_kv(
+            u, values, mesh=mesh, config=net)),
+        ("sort ragged network", lambda: (sortx_torch.dist_sort(
+            rkeys.view(torch.uint32), mesh=mesh, config=net),)))
 
 
 def dist_rank(rank: int, d: int, tmp: str) -> None:
@@ -2766,12 +2799,15 @@ def dist_ranks(dev, card: str, d: int, wants: dict) -> dict:
                 del parts
             check(ok, f"dist {case} D={d} ranks, n={want[0].shape[0]}: the "
                   "gathered shards == the single-card op of the whole input")
-            need = ("scan",) if case == "scan" else NETWORK
             for r, x in enumerate(reports):
                 c = x[case]["launches"]
-                check(all(c.get(k, 0) > 0 for k in need),
+                need, alone = dist_launched(c, x[case]["witness"][1])
+                if case == "scan":
+                    need, alone = ("scan",), True
+                check(all(c.get(k, 0) > 0 for k in need) and alone,
                       f"dist {case} D={d} rank {r} launched "
-                      f"{', '.join(need)}: {c}; witness {x[case]['witness']}")
+                      f"{', '.join(need)} and no other engine's kernels: "
+                      f"{c}; witness {x[case]['witness']}")
                 total.update(c)
                 if case in DIST_BRANCH:
                     witness, step = DIST_BRANCH[case]
@@ -2781,7 +2817,7 @@ def dist_ranks(dev, card: str, d: int, wants: dict) -> dict:
                           f"dist {case} D={d} rank {r}: witness {witness}, "
                           f"ran {step!r} and no skew re-sort: "
                           f"{x[case]['witness']}, {sorted(ran)}")
-            n = DIST_RAGGED if case == "sort ragged" else DIST_N
+            n = DIST_RAGGED if case.startswith("sort ragged") else DIST_N
             for name in reports[0][case]["steps"]:
                 ms = max(statistics.median(x[case]["steps"][name])
                          for x in reports)
@@ -2807,11 +2843,14 @@ def dist_path(dev, card: str) -> dict:
     values = torch.arange(DIST_N, dtype=torch.int32, device=dev)
     u = keys.view(torch.uint32)
     sorted_u = sortx_torch.sort(u)
-    wants = {"sort tree": (sorted_u,), "sort ring": (sorted_u,),
+    wants = {"sort": (sorted_u,), "sort tree": (sorted_u,),
+             "sort ring": (sorted_u,),
              "sort_kv": sortx_torch.sort_kv(u, values),
              "sort_kv i64": sortx_torch.sort_kv(u, dist_values64(dev)),
              "scan": sortx_torch.scan(keys, with_total=True),
              "sort ragged": (sortx_torch.sort(rkeys.view(torch.uint32)),)}
+    wants["sort_kv network"] = wants["sort_kv"]
+    wants["sort ragged network"] = wants["sort ragged"]
     del keys, rkeys, values, u
     torch.cuda.synchronize()
     torch.cuda.empty_cache()    # the ranks share the card with this process
@@ -2827,23 +2866,36 @@ CARD_BRANCH = 1 << 22   # keys a rank in the other branches' cases
 CARD_SEED = SEED + 41
 CARD_REPS = 5           # unprofiled whole calls a full-size case times
 CARD_STEP_REPS = 2      # profiled calls it reads its steps from
-# case -> (witness, the step that must have run) at D = 4; the tree's
-# and the ring's cases must also have taken no skew re-sort
-CARD_BRANCH_OF = {
-    "sort tree": TREE, "sort ring": DIST_BRANCH["sort ring"],
-    "sort_kv i32": TREE, "sort_kv i64": TREE, "sort padded": TREE,
-    "sort_kv padded": TREE,
+# The cases that run again under engine="network" ("<case> network"),
+# with their witness and step there: the network's local sort, its merge
+# tree (or the merge asked for) and its position lane.
+NETWORK_TWINS = {
+    "sort_kv i32": TREE, "sort padded": TREE, "sort_kv padded": TREE,
     "dense bounded": (["dense", "bitonic", "tree"], "exchange dense bounded"),
     "dense full": (["dense", "bitonic", "tree"], "exchange dense full"),
     "merge rank": (["ragged", "bitonic", "rank"], "merge rank"),
-    # "native" is the host library's merge of CPU tensors; on the card it
-    # resolves to the re-sort, as the reference's does off its CPU backend
     "merge native": (["ragged", "bitonic", "sort"], "merge sort"),
     "merge sort": (["ragged", "bitonic", "sort"], "merge sort"),
-    "skew tree": (["ragged", "bitonic", "tree"], SKEW[0]),
-    "skew ring": (["ring", "bitonic", "ring"], SKEW[1]),
     "all equal": TREE, "descending": TREE, "partial bits": TREE,
     "n < D": TREE}
+# case -> (witness, the step that must have run) at D = 4; the tree's
+# and the ring's cases must also have taken no skew re-sort
+CARD_BRANCH_OF = {
+    "sort": RESORT, "sort tree": TREE, "sort ring": DIST_BRANCH["sort ring"],
+    "sort_kv i32": RESORT, "sort_kv i64": TREE, "sort padded": RESORT,
+    "sort_kv padded": RESORT,
+    "dense bounded": (["dense", "radix", "sort"], "exchange dense bounded"),
+    "dense full": (["dense", "radix", "sort"], "exchange dense full"),
+    "merge rank": (["ragged", "radix", "rank"], "merge rank"),
+    # "native" is the host library's merge of CPU tensors; on the card it
+    # resolves to the re-sort, as the reference's does off its CPU backend
+    "merge native": RESORT,
+    "merge sort": RESORT,
+    "skew tree": (["ragged", "bitonic", "tree"], SKEW[0]),
+    "skew ring": (["ring", "bitonic", "ring"], SKEW[1]),
+    "all equal": RESORT, "descending": RESORT, "partial bits": RESORT,
+    "n < D": RESORT,
+    **{f"{case} network": w for case, w in NETWORK_TWINS.items()}}
 
 
 def card_branches(d: int) -> dict:
@@ -2854,7 +2906,8 @@ def card_branches(d: int) -> dict:
     if d == 2:
         return {**CARD_BRANCH_OF, "skew tree": TREE,
                 "skew ring": DIST_BRANCH["sort ring"],
-                "dense bounded": CARD_BRANCH_OF["dense full"]}
+                "dense bounded": CARD_BRANCH_OF["dense full"],
+                "dense bounded network": NETWORK_TWINS["dense full"]}
     return CARD_BRANCH_OF if d == 4 else {}
 
 
@@ -2901,25 +2954,32 @@ def card_padded(out, n: int, d: int) -> tuple:
                  for o, f in zip(out, fills)) + (pad,)
 
 
-def card_cases(d: int, per_rank: int, branch: int):
+def card_cases(d: int, per_rank: int, branch: int, engine: str = "auto"):
     """(name, n, input kind, the names of the inputs the calls take, the
     single-card op, the distributed call (shards, mesh), reps, step reps,
-    padded) of every case of the "dist cards" phase."""
-    C = sortx_torch.Config
-    ring = C(dist_exchange="ring")
+    padded) of every case of the "dist cards" phase, the distributed
+    calls under Config(engine=engine)."""
+    def C(**kw):
+        return sortx_torch.Config(engine=engine, **kw)
+
+    ring, tree = C(dist_exchange="ring"), C(dist_local_merge="tree")
     full, ragged, nb = d * per_rank, d * per_rank + 13, d * branch
     one_kv = sortx_torch.sort_kv
 
-    def dsort(**kw):
-        return lambda s, mesh: (sortx_torch.dist_sort(*s, mesh=mesh, **kw),)
+    def dsort(config=None, **kw):
+        return lambda s, mesh: (sortx_torch.dist_sort(
+            *s, mesh=mesh, config=config or C(), **kw),)
 
-    def dkv(**kw):
-        return lambda s, mesh: sortx_torch.dist_sort_kv(*s, mesh=mesh, **kw)
+    def dkv(config=None, **kw):
+        return lambda s, mesh: sortx_torch.dist_sort_kv(
+            *s, mesh=mesh, config=config or C(), **kw)
 
     big, small = (CARD_REPS, CARD_STEP_REPS), (0, 1)
     return (
-        ("sort tree", full, "uniform", ("keys",),
+        ("sort", full, "uniform", ("keys",),
          lambda k: (sortx_torch.sort(k),), dsort(), *big, False),
+        ("sort tree", full, "uniform", ("keys",),
+         lambda k: (sortx_torch.sort(k),), dsort(config=tree), *big, False),
         ("sort ring", full, "uniform", ("keys",),
          lambda k: (sortx_torch.sort(k),), dsort(config=ring), *big, False),
         ("sort_kv i32", full, "uniform", ("keys", "v32"), one_kv, dkv(),
@@ -2928,10 +2988,12 @@ def card_cases(d: int, per_rank: int, branch: int):
          *big, False),
         ("sort padded", ragged, "uniform", ("keys",),
          lambda k: (sortx_torch.sort(k),),
-         lambda s, mesh: sortx_torch.dist_sort_padded(*s, mesh=mesh),
+         lambda s, mesh: sortx_torch.dist_sort_padded(*s, mesh=mesh,
+                                                      config=C()),
          *big, True),
         ("sort_kv padded", ragged, "uniform", ("keys", "v32"), one_kv,
-         lambda s, mesh: sortx_torch.dist_sort_kv_padded(*s, mesh=mesh),
+         lambda s, mesh: sortx_torch.dist_sort_kv_padded(*s, mesh=mesh,
+                                                         config=C()),
          *big, True),
         ("scan", full, "uniform", ("scan",),
          lambda x: sortx_torch.scan(x, with_total=True),
@@ -2952,7 +3014,7 @@ def card_cases(d: int, per_rank: int, branch: int):
         # 3/4 of the branch size a rank: a presorted shard arrives whole,
         # a run longer than the tree's and the ring's power-of-two blocks
         ("skew tree", 3 * nb // 4, "presorted", ("keys", "v32"), one_kv,
-         dkv(), *small, False),
+         dkv(config=tree), *small, False),
         ("skew ring", 3 * nb // 4, "presorted", ("keys", "v32"), one_kv,
          dkv(config=ring), *small, False),
         ("all equal", nb, "equal", ("keys", "v32"), one_kv, dkv(), *small,
@@ -2967,6 +3029,15 @@ def card_cases(d: int, per_rank: int, branch: int):
          False),
         ("n = 0", 0, "uniform", ("keys",), lambda k: (sortx_torch.sort(k),),
          dsort(), *small, False))
+
+
+def card_cases_all(d: int, per_rank: int, branch: int) -> tuple:
+    """card_cases under "auto", then each of NETWORK_TWINS again under
+    engine="network", named "<case> network"."""
+    return card_cases(d, per_rank, branch) + tuple(
+        (f"{c[0]} network",) + c[1:]
+        for c in card_cases(d, per_rank, branch, "network")
+        if c[0] in NETWORK_TWINS)
 
 
 def card_steps(csv: str) -> dict:
@@ -3057,7 +3128,7 @@ def cards_rank(rank: int, env: dict, tmp: str, per_rank: int,
                branch: int) -> None:
     """One rank of the "dist cards" phase, started as torchrun starts one
     (its environment, LOCAL_RANK = the card): init_multihost() with no
-    arguments, make_sort_mesh(), then every case of card_cases; writes
+    arguments, make_sort_mesh(), then every case of card_cases_all; writes
     its report for the parent."""
     import torch.distributed as dist
 
@@ -3075,8 +3146,8 @@ def cards_rank(rank: int, env: dict, tmp: str, per_rank: int,
                   == dist.group.WORLD.group_name,
                   "cases": {c[0]: card_case(mesh, dev,
                                             f"{tmp}/profile.{rank}.csv", c)
-                            for c in card_cases(mesh.size(), per_rank,
-                                                branch)}}
+                            for c in card_cases_all(mesh.size(), per_rank,
+                                                    branch)}}
         with open(f"{tmp}/cards.{rank}.json", "w") as f:
             json.dump(report, f)
     finally:
@@ -3141,14 +3212,19 @@ def cards_report(reports: list, cards: str) -> dict:
               f"dist cards {case} D={d}, n={n}: every rank's shard on its "
               "card == its slice of the single-card op of the whole array, "
               f"bit for bit; digests {[x['digest'] for x in xs]}")
-        need = (("scan",) if case == "scan" else
-                () if case in ("n < D", "n = 0") else NETWORK)
-        counts = [[x["launches"].get(k, 0) for k in NETWORK + ("scan",)]
-                  for x in xs]
+        need = dist_launched(xs[0]["launches"], xs[0]["witness"][1])[0]
+        if case == "scan":
+            need = ("scan",)
+        elif case.removesuffix(" network") in ("n < D", "n = 0"):
+            need = ()
+        counts = [[x["launches"].get(k, 0)
+                   for k in NETWORK + RADIX + ("scan",)] for x in xs]
         check(all(all(x["launches"].get(k, 0) > 0 for k in need)
+                  and dist_launched(x["launches"], x["witness"][1])[1]
                   for x in xs), f"dist cards {case} D={d}: every rank "
-              f"launched {', '.join(need) or 'what it needed'} (K1-K4 a "
-              f"rank: {counts})")
+              f"launched {', '.join(need) or 'what it needed'} and no "
+              f"other engine's kernels (K1-K3, K9, K10, K4 a rank: "
+              f"{counts})")
         for x in xs:
             total.update(x["launches"])
         if case in branches:
@@ -3230,11 +3306,11 @@ def main() -> None:
     graph_path(dev, card)
     took("graph")
     for name, c in dist_path(dev, card).items():
-        if name in NETWORK + ("scan",):
+        if name in NETWORK + RADIX + ("scan",):
             counts[name] += c
     took("distributed path")
     for name, c in cards_path().items():
-        if name in NETWORK + ("scan",):
+        if name in NETWORK + RADIX + ("scan",):
             counts[name] += c
     took("dist cards")
     kernels = [{"name": name, "route": "cuda", "source": src,

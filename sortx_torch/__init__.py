@@ -36,7 +36,9 @@ Layer map:
   dist_sort / dist_sort_kv / *_padded / dist_scan / make_sort_mesh
                                    parallel/ (one process per rank on
                                    torch.distributed; the local sorts,
-                                   merges and scans on the ops above)
+                                   merges and scans on the ops above:
+                                   the radix engine under "auto" on a
+                                   card)
   host library (merge, oracle)     csrc/host_sort.cpp
   golden oracle (numpy)            reference.py
   config, default_config           config.py

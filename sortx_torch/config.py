@@ -63,13 +63,18 @@ class Config:
       m-word cells; False always ships full cells.
     dist_local_merge: how ``dist_sort`` merges the D received sorted
       runs: "tree" (pairwise ``bitonic_merge_streams``, network engine
-      and power-of-two D), "rank" (``torch.searchsorted`` co-ranking and
-      a scatter), "native" (the host library's k-way merge, CPU tensors
-      only), "sort" (re-sort the receive buffer) or "auto" (tree on the
-      network engine, else sort).
+      and power-of-two D; asking for it keeps the local sorts on the
+      network), "rank" (``torch.searchsorted`` co-ranking and a scatter),
+      "native" (the host library's k-way merge, CPU tensors only), "sort"
+      (re-sort the receive buffer) or "auto": the tree on the network
+      engine, else the re-sort, which on a card under engine "auto" is a
+      stable radix sort (the local sorts take the radix engine where
+      ``sort`` / ``sort_kv`` would: ``parallel/dist_sort.py:
+      _local_engine``).
     dist_exchange: "a2a" (one all-to-all, then the merge) or "ring" (D-1
       point-to-point hops with pairwise merges between them; network
-      engine and power-of-two D, else "a2a").
+      engine and power-of-two D, else "a2a"; where it runs, the local
+      sorts keep the network).
 
     The bitonic network's block size is not a field: its output does not
     depend on it, and ``LOG_BLOCK_MAX`` caps it.

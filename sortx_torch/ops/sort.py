@@ -21,7 +21,8 @@ picks one from what the call's input shows: under "auto" a CUDA tensor
 takes the radix engine for a stable sort of keys of at most 32 bits with
 at most one value word (n < 2^30), and the network otherwise, so
 ``stable=False``, 64-bit keys or values and the ops built on the
-network (rows, ``merge``, ``dist_sort``) keep it.
+network (rows, ``merge``) keep it. ``dist_sort``'s on-card sorts follow
+the same rule (``parallel/dist_sort.py:_local_engine``).
 
 Ordered inputs take the reference's short cuts (``lax.cond`` in
 ``sortx/ops/sort_pallas.py:343-350, 442-445``): keys whose sort key is

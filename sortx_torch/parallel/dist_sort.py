@@ -7,8 +7,10 @@ its shard of the sorted array in the same split; one ``all_gather`` of
 the shard lengths tells every rank n and checks the split.
 
   1. Local stable sort of the shard (padded with 0xFFFFFFFF keys to m =
-     ceil(n / D): the pads are the global tail) by its masked key, the
-     position as a second key: K1-K3 on the network engine.
+     ceil(n / D): the pads are the global tail) by its masked key: under
+     "auto" on a card the radix engine (K9, K10: stable, so no position
+     lane), else K1-K3 on the network engine with the position as a
+     second key, or the host engine.
   2. s regular samples of every sorted shard, all-gathered; splitters
      taken from them in (key, shard, index) order, which is the global
      stable order, so equal keys split exactly.
@@ -19,9 +21,11 @@ the shard lengths tells every rank n and checks the split.
      dense (fixed cells: bounded 2 * ceil(m / D) cells when ``c`` lets
      every off-diagonal cell fit, else full m cells); or the ring, D - 1
      point-to-point hops with the merges between them.
-  5. The local merge of the D received runs: a tree of bitonic merge
-     stages (K2 / K3 in merge mode), co-ranking by ``searchsorted``, the
-     host library's k-way merge (CPU tensors), or a re-sort.
+  5. The local merge of the D received runs: under "auto" on a card a
+     stable radix re-sort of the received slots (arrival order is the
+     global stable order, so no position lane); a tree of bitonic merge
+     stages (K2 / K3 in merge mode) on the network engine; co-ranking by
+     ``searchsorted``; the host library's k-way merge (CPU tensors).
   6. The exact rebalance to m elements a rank (a second exchange).
 
 The reference decides its branches inside one compiled program
@@ -40,15 +44,18 @@ buffers; the sorts and merges still run on the card.
 Words are the u32 images of the keys carried as int32
 (``utils/words.py``); values of every width ride as 32-bit words too
 (``ops/sort.py:_value_words``: 64-bit values as two), so they sort and
-merge on K1-K3 as the single-card ``sort_kv`` does them, and gloo,
-which moves no 16-bit integers, carries them.
+merge as the single-card ``sort_kv`` does them (one word on the radix
+engine, two on K1-K3), and gloo, which moves no 16-bit integers,
+carries them. The engine of both on-card sorts is
+:func:`_local_engine`'s, by ``ops/sort.py:sort_engine``'s rule.
 
 With profiling on at ``level="step"`` (``runtime.toggle_profiling``)
-each step adds a row named ``dist_sort/<step>``: "local sort", "plan",
-"exchange <mode>", "merge <mode>", "exchange + merge ring" and
-"rebalance <mode>"; <mode> names the branch taken ("ragged", "dense
-bounded", "dense full"; "tree", "rank", "native", "sort", "sort (tree
-skew)", "sort (ring skew)").
+each step adds a row named ``dist_sort/<step>``: "local sort <engine>",
+"plan", "exchange <mode>", "merge <mode>", "exchange + merge ring" and
+"rebalance <mode>"; <engine> is the witness ``last_local_engine``,
+<mode> names the branch taken ("ragged", "dense bounded", "dense full";
+"tree", "rank", "native", "sort", "sort (tree skew)", "sort (ring
+skew)").
 """
 
 from __future__ import annotations
@@ -59,9 +66,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..config import Config, default_config, resolve_engine
+from ..config import Config, default_config, device_engine
+from ..ops.radix import radix_sort_streams
 from ..ops.sort import (_check_keys, _order_mask, _to_radix_u32,
-                        _value_words, sort, sort_kv)
+                        _value_words, sort, sort_engine, sort_kv)
 from ..runtime.launcher import profiled, profiled_step
 from ..utils.math import cdiv
 from ..utils.words import FF, as_u64, ordered, wrap_i32
@@ -72,8 +80,9 @@ __all__ = ["dist_sort", "dist_sort_kv", "dist_sort_padded",
            "last_local_merge"]
 
 # Witnesses, with the reference's words. last_exchange: "ragged",
-# "dense", "ring" or "single" (one rank). last_local_engine: "bitonic"
-# (the network engine), "xla" (the host engine) or "single".
+# "dense", "ring" or "single" (one rank). last_local_engine: "radix"
+# (the radix engine, the port's own), "bitonic" (the network engine) or
+# "xla" (the host engine); at one rank, that of the single-card op.
 # last_local_merge: "tree", "rank", "native", "sort", "ring" or "single";
 # "tree" also when skewed arrivals made that call re-sort instead.
 last_exchange: str | None = None
@@ -166,11 +175,22 @@ def _samples(m: int, d: int, use_ragged: bool, cfg: Config) -> int:
     return s
 
 
-def _local_engine(cfg: Config, keys: torch.Tensor) -> str:
-    """"bitonic" (the network engine) or "xla" (the host engine) for the
-    local sorts. Unlike the reference, whose u32 network cannot carry
-    them, values of any width ride the network as 32-bit words."""
-    return "bitonic" if resolve_engine(cfg, keys) == "network" else "xla"
+def _local_engine(cfg: Config, device_type: str, dtype: torch.dtype,
+                  n: int, nv: int, ring: bool) -> str:
+    """The engine of a rank's on-card sorts, the local sort and the
+    re-sort of its receive buffer (``n`` words at most, ``nv`` value
+    words, keys of ``dtype``; ``ring``: the ring would run on the network
+    engine): "radix" where ``sort_engine`` gives the single-card sort of
+    such words the radix engine, unless the tree or the ring, whose merges
+    are bitonic stages, is asked for; else "bitonic" (the network engine)
+    or "xla" (the host engine). Unlike the reference, whose u32 network
+    cannot carry them, values of any width ride the network as 32-bit
+    words."""
+    if (sort_engine(cfg, device_type, dtype, n, value_words=nv) == "radix"
+            and cfg.dist_local_merge != "tree" and not ring):
+        return "radix"
+    return ("bitonic" if device_engine(cfg, device_type) == "network"
+            else "xla")
 
 
 # --- collectives -----------------------------------------------------------
@@ -539,7 +559,12 @@ def _shard_sort(r: _Rank, k: torch.Tensor, vwords, sort_bits: int):
         return tuple(out[len(out) - nv:])
 
     def resort(rf, rv, n: int):
-        """Stable re-sort of a receive buffer (always right)."""
+        """Stable re-sort of a buffer of n words (always right). The
+        radix engine sorts by the masked key alone: the pads at the
+        buffer's tail (0xFFFFFFFF keys) arrive last, so they stay last."""
+        if engine == "radix":
+            ks, vs = radix_sort_streams(rf, sort_bits, rv[0] if nv else None)
+            return ks, (() if vs is None else (vs,))
         if fast:
             return _local_sort_keys(rf, engine), ()
         pos = torch.arange(n, dtype=torch.int32, device=dev)
@@ -548,7 +573,7 @@ def _shard_sort(r: _Rank, k: torch.Tensor, vwords, sort_bits: int):
         return (out[2] if partial else out[0]), tail(out)
 
     # 1. local sort
-    with _step("local sort", dev):
+    with _step(f"local sort {engine}", dev):
         smk, svals = resort(k, vwords, m)
         sfull = smk
         if partial:
@@ -679,8 +704,10 @@ def _dist_sort_impl(keys, values, sort_bits: int, descending: bool, mesh,
     if d == 1:
         # One rank: the single-card sort, with its engine dispatch.
         last_exchange = last_local_merge = "single"
-        last_local_engine = ("xla" if resolve_engine(cfg, keys) == "host"
-                             else "bitonic")
+        nv = 0 if values is None else 1 + (values.element_size() == 8)
+        last_local_engine = {"radix": "radix", "host": "xla"}.get(
+            sort_engine(cfg, keys.device.type, keys.dtype, keys.shape[0],
+                        value_words=nv), "bitonic")
         if values is None:
             return sort(keys, sort_bits, descending=descending,
                         config=cfg), None, 0
@@ -695,8 +722,12 @@ def _dist_sort_impl(keys, values, sort_bits: int, descending: bool, mesh,
     n, m = _global_split(n_here, n_here if values is None
                          else values.shape[0], d, group)
     use_ragged = True if use_ragged is None else use_ragged
-    engine = _local_engine(cfg, keys)
     s = _samples(m, d, use_ragged, cfg)
+    vw, undo_v = ((), None) if values is None else _value_words(
+        values.contiguous())
+    engine = _local_engine(cfg, keys.device.type, keys.dtype,
+                           _recv_buf_len(m, d, s), len(vw),
+                           _use_ring(cfg, "bitonic", d, m, s))
     last_exchange = "ragged" if use_ragged else "dense"
     last_local_engine = engine
     last_local_merge = _resolve_merge_mode(cfg, engine, d, keys.device)
@@ -709,8 +740,6 @@ def _dist_sort_impl(keys, values, sort_bits: int, descending: bool, mesh,
     omask = _order_mask(sort_bits)
     if descending:
         k = k ^ omask
-    vw, undo_v = ((), None) if values is None else _value_words(
-        values.contiguous())
     if n_here < m:
         # The pads hold the highest global indices, so the stable order
         # puts them at the global tail, after every real 0xFFFFFFFF key.

@@ -1297,9 +1297,12 @@ def test_dist_ops_across_cards_match_the_single_card_ops(dev, tmp_path):
         res = json.loads((tmp_path / f"rank{r}.json").read_text())
         assert res["backend"] == "nccl" and res["card"] == r
         assert res["sort"] and res["sort_kv"] and res["scan"], res
+        # "auto" on a card: the radix engine's local sorts and re-sorts
         assert all(res["launches"].get(k, 0) > 0 for k in
-                   ("bitonic_block", "bitonic_tail", "bitonic_global",
-                    "scan")), res
+                   ("radix_histogram", "radix_onesweep", "scan")), res
+        assert not any(res["launches"].get(k, 0) for k in
+                       ("bitonic_block", "bitonic_tail",
+                        "bitonic_global")), res
 
 
 # --- the radix engine: K9 and K10 ------------------------------------------
@@ -1442,10 +1445,21 @@ def test_radix_capture_and_replay(dev, op):
         assert _same_tree(out, run(static, NETWORK)), kind
 
 
-def _gloo_dist_rank(rank: int, d: int, tmp: str, n: int) -> None:
+# config -> (its fields; the local engine and merge of dist_sort and of
+# stable dist_sort_kv with one value word, at D = 4)
+DIST_ENGINES = {
+    "auto": ({}, ("radix", "sort")),
+    "network": ({"engine": "network"}, ("bitonic", "tree")),
+    "tree": ({"dist_local_merge": "tree"}, ("bitonic", "tree")),
+    "ring": ({"dist_exchange": "ring"}, ("bitonic", "ring")),
+}
+
+
+def _gloo_dist_rank(rank: int, d: int, tmp: str, n: int, name: str) -> None:
     """One of d gloo ranks sharing card 0: dist_sort and stable
-    dist_sort_kv of its shard under "auto", held against its slice of
-    the single-card ops; writes the local engine and merge it took."""
+    dist_sort_kv of its shard under the config DIST_ENGINES names, held
+    against its slice of the single-card ops; writes the local engine
+    and merge it took and the launches."""
     import datetime
     import importlib
     import json
@@ -1455,6 +1469,7 @@ def _gloo_dist_rank(rank: int, d: int, tmp: str, n: int) -> None:
     from sortx_torch.parallel import shard_1d
 
     ds = importlib.import_module("sortx_torch.parallel.dist_sort")
+    cfg = sortx_torch.Config(**DIST_ENGINES[name][0])
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
                             world_size=d, rank=rank,
@@ -1466,11 +1481,12 @@ def _gloo_dist_rank(rank: int, d: int, tmp: str, n: int) -> None:
         vals = torch.arange(n, dtype=torch.int32, device=dev)
         wk, wv = sortx_torch.sort_kv(keys, vals)
         launches.clear()
-        out = sortx_torch.dist_sort(shard_1d(keys, mesh).clone(), mesh=mesh)
+        out = sortx_torch.dist_sort(shard_1d(keys, mesh).clone(), mesh=mesh,
+                                    config=cfg)
         res = {"engine": ds.last_local_engine, "merge": ds.last_local_merge}
         ks, vs = sortx_torch.dist_sort_kv(shard_1d(keys, mesh).clone(),
                                           shard_1d(vals, mesh).clone(),
-                                          mesh=mesh)
+                                          mesh=mesh, config=cfg)
         res.update(
             sort=torch.equal(out.view(torch.int32),
                              shard_1d(wk, mesh).view(torch.int32)),
@@ -1485,21 +1501,29 @@ def _gloo_dist_rank(rank: int, d: int, tmp: str, n: int) -> None:
         dist.destroy_process_group()
 
 
-def test_four_rank_dist_sort_stays_on_the_network(dev, tmp_path):
-    """dist_sort's local sorts and merge under "auto" are the network's
-    and the merge tree, as before the radix engine: four gloo ranks
-    sharing the card, 2^18 keys in all."""
+@pytest.mark.parametrize("name", sorted(DIST_ENGINES))
+def test_four_rank_dist_sort_engines(dev, tmp_path, name):
+    """dist_sort's local sorts and merge: under "auto" the radix engine
+    and the re-sort (K9 / K10, no network pass); an explicit network
+    engine, tree or ring keeps the network and its merges. Four gloo
+    ranks sharing the card, 2^18 keys in all, each rank's outputs its
+    slice of the single-card ops'."""
     import json
 
     import torch.multiprocessing as mp
 
     d = 4
-    mp.spawn(_gloo_dist_rank, args=(d, str(tmp_path), 1 << 18), nprocs=d,
-             join=True)
+    mp.spawn(_gloo_dist_rank, args=(d, str(tmp_path), 1 << 18, name),
+             nprocs=d, join=True)
+    want = DIST_ENGINES[name][1]
     for r in range(d):
         res = json.loads((tmp_path / f"rank{r}.json").read_text())
         assert res["sort"] and res["sort_kv"], res
-        assert (res["engine"], res["merge"]) == ("bitonic", "tree"), res
-        assert (res["kv_engine"], res["kv_merge"]) == ("bitonic", "tree"), res
-        assert res["launches"].get("bitonic_global", 0) > 0, res
-        assert res["launches"].get("radix_onesweep", 0) == 0, res
+        assert (res["engine"], res["merge"]) == want, res
+        assert (res["kv_engine"], res["kv_merge"]) == want, res
+        radix = res["launches"].get("radix_onesweep", 0)
+        network = res["launches"].get("bitonic_global", 0)
+        if want[0] == "radix":
+            assert radix > 0 and network == 0, res
+        else:
+            assert network > 0 and radix == 0, res

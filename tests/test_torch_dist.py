@@ -7,7 +7,9 @@ runs the same seeded numpy input over D = 2, 3 and 4 gloo ranks, one
 pool of spawned processes per D for the whole file
 (tests/torch_dist_pool.py), and the test concatenates the ranks'
 shards. The port runs its network engine (the plain versions of K1-K3
-on the CPU, so the tree and the ring really merge) and its host engine;
+on the CPU, so the tree and the ring really merge), its radix engine
+(the plain versions of K9 / K10: the local sort and the re-sort) and
+its host engine;
 its witnesses are held against the reference's own resolvers for the
 same engine, or against the reference's witnesses where both run the
 same engine. Words are compared, floats by their bits.
@@ -112,8 +114,10 @@ def same(got, want):
 
 
 def ref_witness(cfg, engine: str, d: int, n: int, use_ragged=None):
-    """The reference's witnesses for the port's engine ("bitonic" or
-    "xla"), through its own resolvers; None means ragged in the port."""
+    """The reference's witnesses for the port's engine ("bitonic", "xla"
+    or "radix", which the reference's resolvers take as any engine but
+    the network), through its own resolvers; None means ragged in the
+    port."""
     use_ragged = True if use_ragged is None else use_ragged
     rcfg = sortx.Config(dist_local_merge=cfg.dist_local_merge,
                         dist_exchange=cfg.dist_exchange,
@@ -134,7 +138,17 @@ def check_witness(res, cfg, engine: str, d: int, n: int, use_ragged=None):
         [x["witness"] for x in res], want)
 
 
-ENGINES = {"network": "bitonic", "host": "xla"}
+# engine -> the local engine it gives: the radix engine's plain versions
+# of K9 / K10 run on the CPU under Config(engine="radix")
+ENGINES = {"network": "bitonic", "radix": "radix", "host": "xla"}
+
+
+def radix_word(merge: str, exchange: str, d: int) -> str:
+    """The local engine under Config(engine="radix"): the network where
+    the tree is asked for or the ring runs (a power-of-two d), the radix
+    engine otherwise."""
+    ring = exchange == "ring" and d & (d - 1) == 0
+    return "bitonic" if merge == "tree" or ring else "radix"
 
 
 @pytest.mark.parametrize("name", ["uniform", "dups", "tiny", "empty",
@@ -142,16 +156,17 @@ ENGINES = {"network": "bitonic", "host": "xla"}
                                   "maxkeys"])
 @pytest.mark.parametrize("d", DS)
 def test_inputs_match_sortx(pools, d, name):
-    """Keys-only (network engine) and stable key-value sorts (network and
-    host engines) of each input, with the default merge and exchange."""
+    """Keys-only (network and radix engines) and stable key-value sorts
+    (network, radix and host engines) of each input, with the default
+    merge and exchange; on the radix engine the re-sort is the merge."""
     keys, values = inputs(name)
     want, want_kv = ref_sort(name), ref_sort(name, kv=True)
-    cfg = sortx_torch.Config(engine="network")
-    res = pools[d].run("dist_sort", keys=keys, config=cfg)
-    same(gather(res, keys.size), want)
-    check_witness(res, cfg, "bitonic", d, keys.size)
     for engine, word in ENGINES.items():
         cfg = sortx_torch.Config(engine=engine)
+        if engine != "host":
+            res = pools[d].run("dist_sort", keys=keys, config=cfg)
+            same(gather(res, keys.size), want)
+            check_witness(res, cfg, word, d, keys.size)
         res = pools[d].run("dist_sort_kv", keys=keys, values=values,
                            config=cfg)
         same(gather(res, keys.size), want_kv)
@@ -165,25 +180,32 @@ def test_merges_and_exchanges_match_sortx(pools, d, merge, exchange):
     """Every local merge and both schedules, under the ragged exchange
     and the dense one with bounded and with full cells (stable key-value
     sorts of duplicate-heavy keys), and a keys-only sort by the low 16
-    bits."""
-    for ragged, bounded in ((True, True), (False, True), (False, False)):
-        cfg = sortx_torch.Config(engine="network", dist_local_merge=merge,
-                                 dist_exchange=exchange,
-                                 dist_dense_bounded=bounded)
-        keys, values = inputs("dups")
-        want = ref_sort("dups", kv=True)
-        res = pools[d].run("dist_sort_kv", keys=keys, values=values,
-                           config=cfg, use_ragged=ragged)
+    bits: on the network engine, and under Config(engine="radix"), whose
+    local sorts keep the network only for the tree and the ring."""
+    for engine in ("network", "radix"):
+        word = "bitonic" if engine == "network" else radix_word(
+            merge, exchange, d)
+        for ragged, bounded in ((True, True), (False, True),
+                                (False, False)):
+            cfg = sortx_torch.Config(engine=engine, dist_local_merge=merge,
+                                     dist_exchange=exchange,
+                                     dist_dense_bounded=bounded)
+            keys, values = inputs("dups")
+            want = ref_sort("dups", kv=True)
+            res = pools[d].run("dist_sort_kv", keys=keys, values=values,
+                               config=cfg, use_ragged=ragged)
+            same(gather(res, N), want)
+            check_witness(res, cfg, word, d, N, ragged)
+            merged = {s for x in res for s in x["steps"]
+                      if s.startswith(("merge", "exchange + merge"))}
+            assert merged, res[0]["steps"]
+            assert all(f"local sort {word}" in x["steps"] for x in res), (
+                res[0]["steps"])
+        keys, _ = inputs("uniform")
+        want = ref_sort("uniform", 16)
+        res = pools[d].run("dist_sort", keys=keys, sort_bits=16, config=cfg)
         same(gather(res, N), want)
-        check_witness(res, cfg, "bitonic", d, N, ragged)
-        merged = {s for x in res for s in x["steps"]
-                  if s.startswith(("merge", "exchange + merge"))}
-        assert merged, res[0]["steps"]
-    keys, _ = inputs("uniform")
-    want = ref_sort("uniform", 16)
-    res = pools[d].run("dist_sort", keys=keys, sort_bits=16, config=cfg)
-    same(gather(res, N), want)
-    check_witness(res, cfg, "bitonic", d, N)
+        check_witness(res, cfg, word, d, N)
 
 
 def test_every_branch_runs(pools):
@@ -202,8 +224,9 @@ def test_every_branch_runs(pools):
                                    config=cfg, use_ragged=ragged)
                 same(gather(res, N), ref_sort(name, kv=True))
                 seen |= {s for x in res for s in x["steps"]}
-    assert {"local sort", "plan", "exchange ragged", "exchange dense bounded",
-            "exchange dense full", "merge tree", "merge sort (tree skew)",
+    assert {"local sort bitonic", "plan", "exchange ragged",
+            "exchange dense bounded", "exchange dense full", "merge tree",
+            "merge sort (tree skew)",
             "exchange + merge ring", "merge sort (ring skew)",
             "rebalance ragged", "rebalance dense bounded"} <= seen, seen
 
@@ -265,22 +288,29 @@ def type_case(case: str):
 def test_key_and_value_types_match_sortx(pools, case):
     """i32 / f32 / 16-bit keys through the port's radix transforms (at
     D = 3), descending (stable too), partial sort_bits, and values of
-    every width (at D = 4, through the merge tree). Values of every width
-    ride the network engine as 32-bit words, where the reference's take
-    its host engine: the witnesses are its resolvers' for the network."""
+    every width (at D = 4, through the merge tree on the network, the
+    re-sort on the radix engine). Values of every width ride as 32-bit
+    words, where the reference's take its host engine: the witnesses are
+    its resolvers' for the port's engine. 64-bit values, two words, keep
+    the network under Config(engine="radix") too."""
     keys, values, sort_bits, desc, want = type_case(case)
     d = 3 if values is None else 4
-    cfg = sortx_torch.Config(engine="network")
-    if values is None:
-        res = pools[d].run("dist_sort", keys=keys, sort_bits=sort_bits,
-                           descending=desc, config=cfg)
-    else:
-        res = pools[d].run("dist_sort_kv", keys=keys, values=values,
-                           sort_bits=sort_bits, descending=desc, config=cfg)
-    same(gather(res, N), want)
-    check_witness(res, cfg, "bitonic", d, N)
-    if values is not None:
-        assert all("merge tree" in x["steps"] for x in res), res[0]["steps"]
+    for engine in ("network", "radix"):
+        word = ("radix" if engine == "radix" and (
+            values is None or values.itemsize < 8) else "bitonic")
+        cfg = sortx_torch.Config(engine=engine)
+        if values is None:
+            res = pools[d].run("dist_sort", keys=keys, sort_bits=sort_bits,
+                               descending=desc, config=cfg)
+        else:
+            res = pools[d].run("dist_sort_kv", keys=keys, values=values,
+                               sort_bits=sort_bits, descending=desc,
+                               config=cfg)
+        same(gather(res, N), want)
+        check_witness(res, cfg, word, d, N)
+        if values is not None:
+            merge = "merge tree" if word == "bitonic" else "merge sort"
+            assert all(merge in x["steps"] for x in res), res[0]["steps"]
 
 
 @functools.cache
@@ -303,25 +333,29 @@ def ref_padded(case: str):
 @pytest.mark.parametrize("case", ["keys", "kv_descending"])
 @pytest.mark.parametrize("d", DS)
 def test_padded_match_sortx(pools, d, case):
-    """The padded variants: each rank's [m] shard, the same pad on every
-    rank, and the global [D*m] array the reference's: the sorted keys,
-    then its sentinels (the largest key ascending, the smallest
-    descending; value 0)."""
+    """The padded variants, under the default config and on the radix
+    engine: each rank's [m] shard, the same pad on every rank, and the
+    global [D*m] array the reference's: the sorted keys, then its
+    sentinels (the largest key ascending, the smallest descending; value
+    0)."""
     keys, values, want, ref_pad = ref_padded(case)
     assert ref_pad > 0
-    if values is None:
-        got = pools[d].run("dist_sort_padded", keys=keys)
-    else:
-        got = pools[d].run("dist_sort_kv_padded", keys=keys, values=values,
-                           descending=True)
     m = -(-N // d)
-    assert all(x["out"][-1] == d * m - N for x in got)
-    assert all(a.shape == (m,) for x in got for a in x["out"][:-1])
     # the reference's array, its sentinel tail cut or stretched to D*m
     want = tuple(np.concatenate([w[:N], np.repeat(w[N:N + 1], d * m - N)])
                  for w in want)
-    same(tuple(np.concatenate([x["out"][i] for x in got])
-               for i in range(len(want))), want)
+    for cfg in (None, sortx_torch.Config(engine="radix")):
+        if values is None:
+            got = pools[d].run("dist_sort_padded", keys=keys, config=cfg)
+        else:
+            got = pools[d].run("dist_sort_kv_padded", keys=keys,
+                               values=values, descending=True, config=cfg)
+        assert all(x["out"][-1] == d * m - N for x in got)
+        assert all(a.shape == (m,) for x in got for a in x["out"][:-1])
+        same(tuple(np.concatenate([x["out"][i] for x in got])
+                   for i in range(len(want))), want)
+        assert all(x["witness"][1] == ("radix" if cfg else "xla")
+                   for x in got)
 
 
 # case -> (x(rng), dtype)
@@ -469,12 +503,13 @@ def one_rank():
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("engine", ["host", "network"])
+@pytest.mark.parametrize("engine", ["host", "network", "radix"])
 def test_one_rank_is_the_single_card_sort(one_rank, engine):
     """World size 1 takes the reference's d = 1 shortcut: the port's own
     sort / sort_kv / scan with their engine dispatch. The witnesses are
     the reference's: on its host engine as it reports them, on the
-    network as its d = 1 branch words them (dist_sort.py:1058-1067)."""
+    network as its d = 1 branch words them (dist_sort.py:1058-1067); the
+    radix engine, which the reference lacks, is named "radix"."""
     port = importlib.import_module("sortx_torch.parallel.dist_sort")
     keys, values = inputs("dups")
     k, v = to_torch(keys), to_torch(values)
@@ -486,11 +521,13 @@ def test_one_rank_is_the_single_card_sort(one_rank, engine):
                                                config=cfg))), (want,))
     assert sortx_torch.parallel.host_count() == 1
     ref_w = ((REF.last_exchange, REF.last_local_engine, REF.last_local_merge)
-             if engine == "host" else ("single", "bitonic", "single"))
+             if engine == "host" else
+             ("single", "radix" if engine == "radix" else "bitonic", "single"))
     assert (port.last_exchange, port.last_local_engine,
             port.last_local_merge) == ref_w
     ks, vs = sortx_torch.dist_sort_kv(k, v, descending=True, mesh=one_rank,
                                       config=cfg)
+    assert port.last_local_engine == ref_w[1]
     same(arrays(to_numpy(ks), to_numpy(vs)), arrays(*sortx.dist_sort_kv(
         jnp.asarray(keys), jnp.asarray(values), descending=True, mesh=mesh1,
         config=HOST)))

@@ -40,7 +40,8 @@ def test_buffer_bounds_match_sortx(d):
 def test_samples_and_ring_gate_match_sortx(d):
     """The port's sample count is the reference's inline rule
     (dist_sort.py:1095-1103), and its ring gate and merge resolution
-    are the reference's for every config and engine."""
+    are the reference's for every config and engine (the port's "radix",
+    which the reference lacks, as any engine but the network)."""
     for m in MS:
         for ragged in (True, False):
             for bounded in (True, False):
@@ -51,17 +52,73 @@ def test_samples_and_ring_gate_match_sortx(d):
                                          dist_exchange="ring")
                 assert PORT._samples(m, d, ragged, cfg) == s
                 rcfg = sortx.Config(dist_exchange="ring")
-                for engine in ("bitonic", "xla"):
+                for engine in ("bitonic", "xla", "radix"):
                     assert PORT._use_ring(cfg, engine, d, m, s) == \
                         REF._use_ring(rcfg, engine, d, m, s)
     for merge in ("auto", "tree", "rank", "native", "sort"):
-        for engine in ("bitonic", "xla"):
+        for engine in ("bitonic", "xla", "radix"):
             # the reference's native merge runs on its CPU backend, the
             # port's on CPU tensors
             assert PORT._resolve_merge_mode(
                 sortx_torch.Config(dist_local_merge=merge), engine, d,
                 torch.device("cpu")) == REF._resolve_merge_mode(
                     sortx.Config(dist_local_merge=merge), engine, d)
+
+
+U32 = torch.uint32
+# (Config fields, device, key dtype, words the re-sort may hold, value
+# words, the ring would run on the network) -> (local engine, merge at
+# D = 4)
+LOCAL_ENGINE = {
+    "auto on a card": (dict(), "cuda", U32, 1 << 20, 0, False,
+                       "radix", "sort"),
+    "auto, one value word": (dict(), "cuda", U32, 1 << 20, 1, False,
+                             "radix", "sort"),
+    "auto, f32 keys": (dict(), "cuda", torch.float32, 1 << 20, 1, False,
+                       "radix", "sort"),
+    "auto, 64-bit values": (dict(), "cuda", U32, 1 << 20, 2, False,
+                            "bitonic", "tree"),
+    "auto, 2^30 words": (dict(), "cuda", U32, 1 << 30, 0, False,
+                         "bitonic", "tree"),
+    "ring where it runs": (dict(dist_exchange="ring"), "cuda", U32, 1 << 20,
+                           0, True, "bitonic", "tree"),
+    "ring where it does not": (dict(dist_exchange="ring"), "cuda", U32,
+                               1 << 20, 0, False, "radix", "sort"),
+    "explicit tree": (dict(dist_local_merge="tree"), "cuda", U32, 1 << 20,
+                      1, False, "bitonic", "tree"),
+    "explicit rank": (dict(dist_local_merge="rank"), "cuda", U32, 1 << 20,
+                      1, False, "radix", "rank"),
+    "engine network": (dict(engine="network"), "cuda", U32, 1 << 20, 0,
+                       False, "bitonic", "tree"),
+    "engine host": (dict(engine="host"), "cuda", U32, 1 << 20, 0, False,
+                    "xla", "sort"),
+    "engine hybrid": (dict(engine="hybrid"), "cuda", U32, 1 << 20, 0, False,
+                      "xla", "sort"),
+    "auto on the host": (dict(), "cpu", U32, 1 << 20, 0, False, "xla",
+                         "sort"),
+    "engine radix on the host": (dict(engine="radix"), "cpu", U32, 1 << 20,
+                                 1, False, "radix", "sort"),
+    "engine radix, explicit tree": (dict(engine="radix",
+                                         dist_local_merge="tree"), "cpu",
+                                    U32, 1 << 20, 0, False, "bitonic",
+                                    "tree"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LOCAL_ENGINE))
+def test_local_engine_follows_sort_engine(case):
+    """The engine of a rank's local sort and re-sort, a pure function of
+    what the call shows: "auto" on a card is the radix engine where the
+    single-card sort's rule gives it (keys of at most 32 bits, at most
+    one value word, fewer than 2^30 words), unless the tree is asked for
+    or the ring runs; the merge under "auto" is then the re-sort. CPU
+    tensors under "auto" keep the host engine."""
+    fields, device, dtype, n, nv, ring, want, merge = LOCAL_ENGINE[case]
+    cfg = sortx_torch.Config(**fields)
+    got = PORT._local_engine(cfg, device, dtype, n, nv, ring)
+    assert got == want
+    assert PORT._resolve_merge_mode(cfg, got, 4, torch.device(device)) == (
+        merge)
 
 
 def _plans(dests, d: int):

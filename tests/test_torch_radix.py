@@ -288,16 +288,18 @@ def test_sort_engine_dispatch(engine, device, dtype, n, stable, words, want):
                                           ("network", "network"),
                                           ("hybrid", "hybrid")])
 def test_other_ops_and_dist_keep_their_engine_on_a_card(engine, want):
-    """Every op but sort / sort_kv resolves "radix" to the network, and
-    dist_sort's local sorts and merge under "auto" stay the network's
-    (the merge tree), as before the radix engine."""
+    """Every op but sort / sort_kv resolves "radix" to the network;
+    dist_sort's local sorts of u32 words follow sort / sort_kv: the radix
+    engine under "auto" and "radix", with the re-sort as the merge; the
+    network (the merge tree) under "network"."""
     cfg = sortx_torch.Config(engine=engine)
     on_card = types.SimpleNamespace(device=torch.device("cuda"))
     assert resolve_engine(cfg, on_card) == want
-    local = ds._local_engine(cfg, on_card)
-    assert local == ("bitonic" if want == "network" else "xla")
+    local = ds._local_engine(cfg, "cuda", torch.uint32, 1 << 20, 0, False)
+    assert local == {"auto": "radix", "radix": "radix", "network": "bitonic",
+                     "hybrid": "xla"}[engine]
     assert ds._resolve_merge_mode(cfg, local, 4, on_card.device) == (
-        "tree" if want == "network" else "sort")
+        "tree" if local == "bitonic" else "sort")
 
 
 @pytest.mark.parametrize("case", ["n", "sort_bits", "scratch", "tile"])
