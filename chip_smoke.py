@@ -69,9 +69,9 @@ u32 keys, 512 MB per stream, or 2048 rows of 2^16):
              processes sharing the card over gloo (spawned after the
              kernels are built, so they only load them), 2^26 keys in
              all and a ragged 2^26 + 13: dist_sort under "auto" (the
-             radix engine and the re-sort), with the merge tree and with
-             the ring, stable dist_sort_kv with int32 values (radix) and
-             with int64 values (the tree), and dist_scan; the int32
+             radix engine and the re-sort), stable dist_sort_kv with
+             int32 values (radix) and with int64 values (the tree), and
+             dist_scan; the int32
              dist_sort_kv and the ragged dist_sort also under
              engine="network" (the tree); the gathered
              shards held against the single-card op of the whole input,
@@ -86,17 +86,15 @@ u32 keys, 512 MB per stream, or 2048 rows of 2^16):
              started as torchrun starts one and calling init_multihost()
              with no arguments (NCCL, on card LOCAL_RANK); at 2^27 keys a
              rank dist_sort under "auto" (the radix engine, the re-sort),
-             with the merge tree and with the ring, stable dist_sort_kv
-             with int32 (radix) and int64 values (the tree),
-             dist_sort_padded and dist_sort_kv_padded of D * 2^27 + 13
-             keys and dist_scan with its total; at 2^22 a rank the dense
-             exchange bounded and full, the merges "rank", "native" and
-             "sort", presorted keys that take the tree's and the ring's
-             skew re-sort, all-equal keys, descending, sort_bits=12, n <
-             D and n = 0. Each case that runs the radix engine under
-             "auto" (but the plain dist_sort and scan) runs again under
+             stable dist_sort_kv with int32 (radix) and int64 values (the
+             tree), dist_sort_padded and dist_sort_kv_padded of D * 2^27
+             + 13 keys and dist_scan with its total; at 2^22 a rank
+             presorted keys that take the tree's skew re-sort on the
+             network, all-equal keys, descending, sort_bits=12, n < D and
+             n = 0. Each case that runs the radix engine under "auto"
+             (but the plain dist_sort and scan) runs again under
              engine="network" ("<case> network": the network's local
-             sort, its tree or merge, its position lane).
+             sort, its merge tree, its position lane).
              Each rank makes the whole global array from the seed on its
              own card, runs the single-card op on it and holds its shard
              bit for bit against its slice; the parent checks every
@@ -2581,12 +2579,11 @@ SHARED = "processes sharing one card; not a scaling figure"
 TREE = (["ragged", "bitonic", "tree"], "merge tree")
 RESORT = (["ragged", "radix", "sort"], "merge sort")   # "auto" on a card
 DIST_BRANCH = {       # case -> (witness, the step that must have run)
-    "sort": RESORT, "sort tree": TREE, "sort_kv": RESORT,
-    "sort_kv i64": TREE, "sort ragged": RESORT,
-    "sort ring": (["ring", "bitonic", "ring"], "exchange + merge ring"),
-    "sort_kv network": TREE, "sort ragged network": TREE,
+    "sort": RESORT, "sort_kv": RESORT, "sort_kv i64": TREE,
+    "sort ragged": RESORT, "sort_kv network": TREE,
+    "sort ragged network": TREE,
 }
-SKEW = ("merge sort (tree skew)", "merge sort (ring skew)")
+SKEW = "merge sort (tree skew)"
 
 
 def dist_launched(counts: dict, engine: str) -> tuple:
@@ -2673,16 +2670,10 @@ def dist_cases(mesh, keys, rkeys):
         DIST_N, dtype=torch.int32, device=keys.device), mesh).clone()
     values64 = sortx_torch.parallel.shard_1d(dist_values64(keys.device),
                                              mesh).clone()
-    ring = sortx_torch.Config(dist_exchange="ring")
-    tree = sortx_torch.Config(dist_local_merge="tree")
     net = sortx_torch.Config(engine="network")
     u = keys.view(torch.uint32)
     return (
         ("sort", lambda: (sortx_torch.dist_sort(u, mesh=mesh),)),
-        ("sort tree", lambda: (sortx_torch.dist_sort(u, mesh=mesh,
-                                                     config=tree),)),
-        ("sort ring", lambda: (sortx_torch.dist_sort(u, mesh=mesh,
-                                                     config=ring),)),
         ("sort_kv", lambda: sortx_torch.dist_sort_kv(u, values, mesh=mesh)),
         ("sort_kv i64", lambda: sortx_torch.dist_sort_kv(u, values64,
                                                          mesh=mesh)),
@@ -2813,7 +2804,7 @@ def dist_ranks(dev, card: str, d: int, wants: dict) -> dict:
                     witness, step = DIST_BRANCH[case]
                     ran = set(x[case]["steps"])
                     check(x[case]["witness"] == witness and step in ran
-                          and not ran & set(SKEW),
+                          and SKEW not in ran,
                           f"dist {case} D={d} rank {r}: witness {witness}, "
                           f"ran {step!r} and no skew re-sort: "
                           f"{x[case]['witness']}, {sorted(ran)}")
@@ -2843,8 +2834,7 @@ def dist_path(dev, card: str) -> dict:
     values = torch.arange(DIST_N, dtype=torch.int32, device=dev)
     u = keys.view(torch.uint32)
     sorted_u = sortx_torch.sort(u)
-    wants = {"sort": (sorted_u,), "sort tree": (sorted_u,),
-             "sort ring": (sorted_u,),
+    wants = {"sort": (sorted_u,),
              "sort_kv": sortx_torch.sort_kv(u, values),
              "sort_kv i64": sortx_torch.sort_kv(u, dist_values64(dev)),
              "scan": sortx_torch.scan(keys, with_total=True),
@@ -2868,46 +2858,28 @@ CARD_REPS = 5           # unprofiled whole calls a full-size case times
 CARD_STEP_REPS = 2      # profiled calls it reads its steps from
 # The cases that run again under engine="network" ("<case> network"),
 # with their witness and step there: the network's local sort, its merge
-# tree (or the merge asked for) and its position lane.
+# tree and its position lane.
 NETWORK_TWINS = {
     "sort_kv i32": TREE, "sort padded": TREE, "sort_kv padded": TREE,
-    "dense bounded": (["dense", "bitonic", "tree"], "exchange dense bounded"),
-    "dense full": (["dense", "bitonic", "tree"], "exchange dense full"),
-    "merge rank": (["ragged", "bitonic", "rank"], "merge rank"),
-    "merge native": (["ragged", "bitonic", "sort"], "merge sort"),
-    "merge sort": (["ragged", "bitonic", "sort"], "merge sort"),
     "all equal": TREE, "descending": TREE, "partial bits": TREE,
     "n < D": TREE}
 # case -> (witness, the step that must have run) at D = 4; the tree's
-# and the ring's cases must also have taken no skew re-sort
+# cases must also have taken no skew re-sort
 CARD_BRANCH_OF = {
-    "sort": RESORT, "sort tree": TREE, "sort ring": DIST_BRANCH["sort ring"],
-    "sort_kv i32": RESORT, "sort_kv i64": TREE, "sort padded": RESORT,
-    "sort_kv padded": RESORT,
-    "dense bounded": (["dense", "radix", "sort"], "exchange dense bounded"),
-    "dense full": (["dense", "radix", "sort"], "exchange dense full"),
-    "merge rank": (["ragged", "radix", "rank"], "merge rank"),
-    # "native" is the host library's merge of CPU tensors; on the card it
-    # resolves to the re-sort, as the reference's does off its CPU backend
-    "merge native": RESORT,
-    "merge sort": RESORT,
-    "skew tree": (["ragged", "bitonic", "tree"], SKEW[0]),
-    "skew ring": (["ring", "bitonic", "ring"], SKEW[1]),
+    "sort": RESORT, "sort_kv i32": RESORT, "sort_kv i64": TREE,
+    "sort padded": RESORT, "sort_kv padded": RESORT,
+    "skew tree": (["ragged", "bitonic", "tree"], SKEW),
     "all equal": RESORT, "descending": RESORT, "partial bits": RESORT,
     "n < D": RESORT,
     **{f"{case} network": w for case, w in NETWORK_TWINS.items()}}
 
 
 def card_branches(d: int) -> dict:
-    """CARD_BRANCH_OF as it holds at D = d: at D = 2 a bounded cell is a
-    whole shard (so the cells are full) and a run never outgrows its
-    block (so no skew re-sort); at D = 3 neither the tree nor the ring
-    runs, and nothing is held."""
+    """CARD_BRANCH_OF as it holds at D = d: at D = 2 a run never outgrows
+    its block (so no skew re-sort); at D = 3 the tree does not run, and
+    nothing is held."""
     if d == 2:
-        return {**CARD_BRANCH_OF, "skew tree": TREE,
-                "skew ring": DIST_BRANCH["sort ring"],
-                "dense bounded": CARD_BRANCH_OF["dense full"],
-                "dense bounded network": NETWORK_TWINS["dense full"]}
+        return {**CARD_BRANCH_OF, "skew tree": TREE}
     return CARD_BRANCH_OF if d == 4 else {}
 
 
@@ -2962,7 +2934,6 @@ def card_cases(d: int, per_rank: int, branch: int, engine: str = "auto"):
     def C(**kw):
         return sortx_torch.Config(engine=engine, **kw)
 
-    ring, tree = C(dist_exchange="ring"), C(dist_local_merge="tree")
     full, ragged, nb = d * per_rank, d * per_rank + 13, d * branch
     one_kv = sortx_torch.sort_kv
 
@@ -2978,10 +2949,6 @@ def card_cases(d: int, per_rank: int, branch: int, engine: str = "auto"):
     return (
         ("sort", full, "uniform", ("keys",),
          lambda k: (sortx_torch.sort(k),), dsort(), *big, False),
-        ("sort tree", full, "uniform", ("keys",),
-         lambda k: (sortx_torch.sort(k),), dsort(config=tree), *big, False),
-        ("sort ring", full, "uniform", ("keys",),
-         lambda k: (sortx_torch.sort(k),), dsort(config=ring), *big, False),
         ("sort_kv i32", full, "uniform", ("keys", "v32"), one_kv, dkv(),
          *big, False),
         ("sort_kv i64", full, "uniform", ("keys", "v64"), one_kv, dkv(),
@@ -2999,24 +2966,10 @@ def card_cases(d: int, per_rank: int, branch: int, engine: str = "auto"):
          lambda x: sortx_torch.scan(x, with_total=True),
          lambda s, mesh: sortx_torch.dist_scan(*s, with_total=True,
                                                mesh=mesh), *big, False),
-        ("dense bounded", nb, "uniform", ("keys",),
-         lambda k: (sortx_torch.sort(k),), dsort(use_ragged=False), *small,
-         False),
-        ("dense full", nb, "dups", ("keys", "v32"), one_kv,
-         dkv(use_ragged=False, config=C(dist_dense_bounded=False)), *small,
-         False),
-        ("merge rank", nb, "dups", ("keys", "v32"), one_kv,
-         dkv(config=C(dist_local_merge="rank")), *small, False),
-        ("merge native", nb, "dups", ("keys", "v32"), one_kv,
-         dkv(config=C(dist_local_merge="native")), *small, False),
-        ("merge sort", nb, "dups", ("keys", "v32"), one_kv,
-         dkv(config=C(dist_local_merge="sort")), *small, False),
         # 3/4 of the branch size a rank: a presorted shard arrives whole,
-        # a run longer than the tree's and the ring's power-of-two blocks
+        # a run longer than the network's power-of-two tree blocks
         ("skew tree", 3 * nb // 4, "presorted", ("keys", "v32"), one_kv,
-         dkv(config=tree), *small, False),
-        ("skew ring", 3 * nb // 4, "presorted", ("keys", "v32"), one_kv,
-         dkv(config=ring), *small, False),
+         dkv(config=sortx_torch.Config(engine="network")), *small, False),
         ("all equal", nb, "equal", ("keys", "v32"), one_kv, dkv(), *small,
          False),
         ("descending", nb, "dups", ("keys", "v32"),
@@ -3203,8 +3156,8 @@ def cards_report(reports: list, cards: str) -> dict:
     label = f"{d} cards over NCCL"
     branches = card_branches(d)
     if not branches:
-        print(f"dist cards D={d}: no witness or step is held (the tree and "
-              "the ring need a power-of-two D)", flush=True)
+        print(f"dist cards D={d}: no witness or step is held (the tree "
+              "needs a power-of-two D)", flush=True)
     for case in reports[0]["cases"]:
         xs = [x["cases"][case] for x in reports]
         n = xs[0]["n"]
@@ -3229,7 +3182,7 @@ def cards_report(reports: list, cards: str) -> dict:
             total.update(x["launches"])
         if case in branches:
             witness, step = branches[case]
-            skew_ok = step in SKEW or not any(set(x["steps"]) & set(SKEW)
+            skew_ok = step == SKEW or not any(SKEW in x["steps"]
                                               for x in xs)
             check(all(x["witness"] == witness and step in x["steps"]
                       for x in xs) and skew_ok,

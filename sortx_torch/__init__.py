@@ -25,20 +25,26 @@ Layer map:
                                    ops/keyed.py, ops/unique.py
   sort_segments / sort_kv_segments / scan_segments / scan_by_key
                                    ops/segmented.py, ops/segscan.py
-  engines                          ops/sort_network.py, ops/sort_hybrid.py,
-                                   ops/sort_host.py
+  engines                          ops/radix.py (the main path: "auto"
+                                   on a card for stable sorts of <= 32-bit
+                                   keys), ops/sort_network.py,
+                                   ops/sort_hybrid.py, ops/sort_host.py
   bitonic network pass plans       ops/bitonic.py
-  kernel wrappers                  ops/bitonic.py, ops/scan.py,
-                                   ops/radix_kernels.py, ops/shuffle.py
-  kernels                          csrc/bitonic.cu (K1-K3), csrc/scan.cu
-                                   (K4), csrc/histogram.cu (K5),
-                                   csrc/shuffle.cu (K6, K7)
+  kernel wrappers                  ops/radix.py, ops/bitonic.py,
+                                   ops/scan.py, ops/radix_kernels.py,
+                                   ops/shuffle.py
+  kernels                          csrc/radix.cu (K9, K10: the main
+                                   path), csrc/bitonic.cu (K1-K3),
+                                   csrc/scan.cu (K4), csrc/histogram.cu
+                                   (K5), csrc/shuffle.cu (K6, K7)
   dist_sort / dist_sort_kv / *_padded / dist_scan / make_sort_mesh
                                    parallel/ (one process per rank on
-                                   torch.distributed; the local sorts,
-                                   merges and scans on the ops above:
-                                   the radix engine under "auto" on a
-                                   card)
+                                   torch.distributed; one schedule: the
+                                   local sort, a ragged all-to-all, the
+                                   merge its engine implies, a ragged
+                                   rebalance; the sorts, merges and scans
+                                   on the ops above: the radix engine
+                                   under "auto" on a card)
   host library (merge, oracle)     csrc/host_sort.cpp
   golden oracle (numpy)            reference.py
   config, default_config           config.py

@@ -1,11 +1,12 @@
 """Engine configuration of the PyTorch port.
 
 Counterpart of ``sortx/config.py``, carrying only the fields the port
-reads: the engine, the tiles and the hybrid's geometry, and the three
-fields of the distributed layer (``parallel/dist_sort.py``). The TPU
-tuning fields (radix width, network block size, DMA depth, the "auto"
-engine's size floor, interpret and profiling switches) have no reader
-here.
+reads: the engine, the tiles and the hybrid's geometry. The TPU tuning
+fields (radix width, network block size, DMA depth, the "auto" engine's
+size floor, interpret and profiling switches) have no reader here, and
+neither have the distributed layer's three schedule fields: the port's
+``dist_sort`` runs one schedule, the ragged exchange and the merge its
+engine implies (``parallel/dist_sort.py``).
 
 The process-wide default (:func:`default_config`, the ops' config when
 none is passed) takes its engine from ``SORTX_ENGINE``, under the port's
@@ -57,24 +58,6 @@ class Config:
     engine_phase_sort: the hybrid's row sorter, "bitonic" (the row
       network) or "host" (``torch.sort`` along the rows; ``sortx``'s
       "xla").
-    dist_dense_bounded: the dense exchange of ``dist_sort`` ships cells
-      of 2 * ceil(m / D) words (the diagonal cell stays home) when the
-      gathered count matrix lets every off-diagonal cell fit, else full
-      m-word cells; False always ships full cells.
-    dist_local_merge: how ``dist_sort`` merges the D received sorted
-      runs: "tree" (pairwise ``bitonic_merge_streams``, network engine
-      and power-of-two D; asking for it keeps the local sorts on the
-      network), "rank" (``torch.searchsorted`` co-ranking and a scatter),
-      "native" (the host library's k-way merge, CPU tensors only), "sort"
-      (re-sort the receive buffer) or "auto": the tree on the network
-      engine, else the re-sort, which on a card under engine "auto" is a
-      stable radix sort (the local sorts take the radix engine where
-      ``sort`` / ``sort_kv`` would: ``parallel/dist_sort.py:
-      _local_engine``).
-    dist_exchange: "a2a" (one all-to-all, then the merge) or "ring" (D-1
-      point-to-point hops with pairwise merges between them; network
-      engine and power-of-two D, else "a2a"; where it runs, the local
-      sorts keep the network).
 
     The bitonic network's block size is not a field: its output does not
     depend on it, and ``LOG_BLOCK_MAX`` caps it.
@@ -88,9 +71,6 @@ class Config:
     engine_headroom: float = 1.10
     engine_chunk_elems: int = 1 << 14
     engine_phase_sort: str = "bitonic"
-    dist_dense_bounded: bool = True
-    dist_local_merge: str = "auto"
-    dist_exchange: str = "a2a"
 
     def __post_init__(self):
         if self.engine not in ("auto", "network", "radix", "hybrid", "host"):
@@ -108,12 +88,6 @@ class Config:
             raise ValueError("engine_headroom must be >= 1.0")
         if self.engine_phase_sort not in ("bitonic", "host"):
             raise ValueError("engine_phase_sort must be bitonic|host")
-        if self.dist_local_merge not in ("auto", "tree", "native", "rank",
-                                         "sort"):
-            raise ValueError(
-                "dist_local_merge must be auto|tree|native|rank|sort")
-        if self.dist_exchange not in ("a2a", "ring"):
-            raise ValueError("dist_exchange must be a2a|ring")
 
 
 def resolve_engine(cfg: Config, t) -> str:

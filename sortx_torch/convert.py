@@ -63,7 +63,9 @@ def config_from_sortx(cfg) -> Config:
 
     engine "pallas" maps to "network", the hybrid's phase sorter "xla"
     to "host". The TPU block size, DMA depth and the "auto" engine's
-    size floor have no counterpart: the outputs do not depend on them.
+    size floor have no counterpart, and neither have ``dist_exchange``,
+    ``dist_local_merge`` and ``dist_dense_bounded``: the port's
+    ``dist_sort`` runs one schedule. The outputs depend on none of them.
     """
     return Config(engine=ENGINES[cfg.engine],
                   scan_tile_elems=cfg.scan_tile_elems,
@@ -72,7 +74,4 @@ def config_from_sortx(cfg) -> Config:
                   engine_buckets=cfg.engine_buckets,
                   engine_headroom=cfg.engine_headroom,
                   engine_chunk_elems=cfg.engine_chunk_elems,
-                  engine_phase_sort=_PHASE_SORTS[cfg.engine_phase_sort],
-                  dist_dense_bounded=cfg.dist_dense_bounded,
-                  dist_local_merge=cfg.dist_local_merge,
-                  dist_exchange=cfg.dist_exchange)
+                  engine_phase_sort=_PHASE_SORTS[cfg.engine_phase_sort])

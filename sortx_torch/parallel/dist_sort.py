@@ -7,55 +7,48 @@ its shard of the sorted array in the same split; one ``all_gather`` of
 the shard lengths tells every rank n and checks the split.
 
   1. Local stable sort of the shard (padded with 0xFFFFFFFF keys to m =
-     ceil(n / D): the pads are the global tail) by its masked key: under
-     "auto" on a card the radix engine (K9, K10: stable, so no position
-     lane), else K1-K3 on the network engine with the position as a
-     second key, or the host engine.
+     ceil(n / D): the pads are the global tail) by its masked key, on
+     :func:`_local_engine`'s engine: the radix engine (K9, K10: stable,
+     so no position lane), K1-K3 on the network engine with the position
+     as a second key, or the host engine's stable ``torch.sort``.
   2. s regular samples of every sorted shard, all-gathered; splitters
      taken from them in (key, shard, index) order, which is the global
      stable order, so equal keys split exactly.
   3. Each rank's boundaries in its sorted shard, and the count matrix
      ``c[i, j]`` (elements rank i sends to rank j), all-gathered and read
      on the host: one read, the same on every rank.
-  4. The exchange: ragged (``all_to_all_single`` with split sizes) or
-     dense (fixed cells: bounded 2 * ceil(m / D) cells when ``c`` lets
-     every off-diagonal cell fit, else full m cells); or the ring, D - 1
-     point-to-point hops with the merges between them.
-  5. The local merge of the D received runs: under "auto" on a card a
-     stable radix re-sort of the received slots (arrival order is the
-     global stable order, so no position lane); a tree of bitonic merge
-     stages (K2 / K3 in merge mode) on the network engine; co-ranking by
-     ``searchsorted``; the host library's k-way merge (CPU tensors).
-  6. The exact rebalance to m elements a rank (a second exchange).
+  4. The exchange: one ragged ``all_to_all_single`` with split sizes;
+     the segments land left-packed in sender order.
+  5. The local merge of the D received runs, which the engine decides
+     (:func:`_merge_mode`): on the network engine at a power-of-two D a
+     tree of bitonic merge stages (K2 / K3 in merge mode), unless a run
+     outgrows its block; otherwise a stable re-sort of the receive buffer
+     on the same engine (arrival order is the global stable order, so the
+     radix engine needs no position lane).
+  6. The exact rebalance to m elements a rank (a second ragged
+     exchange).
 
 The reference decides its branches inside one compiled program
-(``lax.cond``); here they are host branches. A branch that holds a
-collective must be taken by every rank alike, so each one is decided
-from data every rank holds identically: the all-gathered lengths and
-count matrix. On NCCL (one rank a card) every collective and the ring's
-point-to-point hops move the ranks' card buffers directly; a hop's
-batch is never the group's first collective (the lengths are gathered
-before it), so ranks with nothing to move may post nothing. Where a gloo
-group carries CUDA tensors (several ranks sharing one card), the data
-crosses through host memory: gloo's all-to-all takes CUDA tensors and
-stages them itself, and the ring's hops copy through pinned host
-buffers; the sorts and merges still run on the card.
+(``lax.cond``); here they are host branches. Every rank must reach the
+same collectives, so each branch is decided from data every rank holds
+identically: the all-gathered lengths and count matrix. On NCCL (one
+rank a card) the collectives move the ranks' card buffers directly.
+Where a gloo group carries CUDA tensors (several ranks sharing one
+card), gloo's all-to-all stages them through host memory itself; the
+sorts and merges still run on the card.
 
 Words are the u32 images of the keys carried as int32
 (``utils/words.py``); values of every width ride as 32-bit words too
 (``ops/sort.py:_value_words``: 64-bit values as two), so they sort and
 merge as the single-card ``sort_kv`` does them (one word on the radix
 engine, two on K1-K3), and gloo, which moves no 16-bit integers,
-carries them. The engine of both on-card sorts is
-:func:`_local_engine`'s, by ``ops/sort.py:sort_engine``'s rule.
+carries them.
 
 With profiling on at ``level="step"`` (``runtime.toggle_profiling``)
 each step adds a row named ``dist_sort/<step>``: "local sort <engine>",
-"plan", "exchange <mode>", "merge <mode>", "exchange + merge ring" and
-"rebalance <mode>"; <engine> is the witness ``last_local_engine``,
-<mode> names the branch taken ("ragged", "dense bounded", "dense full";
-"tree", "rank", "native", "sort", "sort (tree skew)", "sort (ring
-skew)").
+"plan", "exchange ragged", "merge <mode>" and "rebalance ragged";
+<engine> is the witness ``last_local_engine``, <mode> "tree", "sort" or
+"sort (tree skew)".
 """
 
 from __future__ import annotations
@@ -66,25 +59,26 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..config import Config, default_config, device_engine
+from ..config import Config, default_config
 from ..ops.radix import radix_sort_streams
 from ..ops.sort import (_check_keys, _order_mask, _to_radix_u32,
                         _value_words, sort, sort_engine, sort_kv)
 from ..runtime.launcher import profiled, profiled_step
 from ..utils.math import cdiv
-from ..utils.words import FF, as_u64, ordered, wrap_i32
+from ..utils.words import FF, as_u64, ordered
 from .mesh import make_sort_mesh, mesh_ranks
 
 __all__ = ["dist_sort", "dist_sort_kv", "dist_sort_padded",
            "dist_sort_kv_padded", "last_exchange", "last_local_engine",
            "last_local_merge"]
 
-# Witnesses, with the reference's words. last_exchange: "ragged",
-# "dense", "ring" or "single" (one rank). last_local_engine: "radix"
-# (the radix engine, the port's own), "bitonic" (the network engine) or
-# "xla" (the host engine); at one rank, that of the single-card op.
-# last_local_merge: "tree", "rank", "native", "sort", "ring" or "single";
-# "tree" also when skewed arrivals made that call re-sort instead.
+# Witnesses, with the reference's words. last_exchange: "ragged" or
+# "single" (one rank); the port has no dense exchange, so use_ragged=False
+# reads "ragged" too. last_local_engine: "radix" (the radix engine, the
+# port's own), "bitonic" (the network engine) or "xla" (the host engine);
+# at one rank, that of the single-card op. last_local_merge: "tree",
+# "sort" or "single"; "tree" also when skewed arrivals made that call
+# re-sort instead.
 last_exchange: str | None = None
 last_local_engine: str | None = None
 last_local_merge: str | None = None
@@ -95,12 +89,6 @@ def _step(name: str, device: torch.device):
 
 
 # --- the plan: plain functions (tests/test_torch_dist_plan.py) ------------
-
-def _dense_cell_cap(m: int, d: int) -> int:
-    """Off-diagonal cell capacity of the bounded dense exchange: 2x the
-    balanced m/D share, 8-aligned, never above m."""
-    return min(m, max(64, (2 * cdiv(m, d) + 7) // 8 * 8))
-
 
 def _segment_layout(dest: torch.Tensor, d: int):
     """(sizes, offsets) per destination of the nondecreasing destination
@@ -131,99 +119,39 @@ def _recv_buf_len(m: int, d: int, s: int) -> int:
 
 
 def _tree_cell_cap(buf: int, m: int, d: int) -> int:
-    """Width of a run's block in the merge tree and the ring: a power of
-    two, at least twice the mean run and 1024, at most the power of two
-    at or above m (a run never exceeds m)."""
+    """Width of a run's block in the merge tree: a power of two, at least
+    twice the mean run and 1024, at most the power of two at or above m
+    (a run never exceeds m)."""
     cap = 1 << max(10, (2 * cdiv(buf, d) - 1).bit_length())
     return min(cap, 1 << max(10, (m - 1).bit_length()))
 
 
-def _use_ring(cfg: Config, engine: str, d: int, m: int, s: int) -> bool:
-    """Does the ring schedule run: asked for, the network engine (its
-    merges are bitonic stages), power-of-two d, and a tag lane
-    (sender * cell + index) that fits 32 bits."""
-    if cfg.dist_exchange != "ring" or engine != "bitonic":
-        return False
-    if d <= 1 or d & (d - 1):
-        return False
-    buf = _recv_buf_len(m, d, s)
-    return d * _tree_cell_cap(buf, m, d) < (1 << 32)
-
-
-def _resolve_merge_mode(cfg: Config, engine: str, d: int,
-                        device: torch.device) -> str:
-    """The local merge that runs for cfg.dist_local_merge: "auto" is the
-    tree on the network engine, else the re-sort; the tree needs the
-    network engine and power-of-two d; "native" needs CPU tensors."""
-    mode = cfg.dist_local_merge
-    if mode == "auto":
-        mode = "tree" if engine == "bitonic" else "sort"
-    if mode == "tree" and (engine != "bitonic" or d & (d - 1)):
-        mode = "sort"
-    if mode == "native" and device.type != "cpu":
-        mode = "sort"
-    return mode
-
-
-def _samples(m: int, d: int, use_ragged: bool, cfg: Config) -> int:
-    """Regular samples a shard. s >= d keeps every partition below the
-    receive buffer; the bounded dense cells take s >= d^3, so that the
-    rebalance's boundary spill stays within one cell."""
-    s = min(max(d, min(64, m)), m)
-    if not use_ragged and cfg.dist_dense_bounded:
-        s = min(m, max(s, d * d * d))
-    return s
+def _samples(m: int, d: int) -> int:
+    """Regular samples a shard: s >= d keeps every partition below the
+    receive buffer."""
+    return min(max(d, min(64, m)), m)
 
 
 def _local_engine(cfg: Config, device_type: str, dtype: torch.dtype,
-                  n: int, nv: int, ring: bool) -> str:
+                  n: int, nv: int) -> str:
     """The engine of a rank's on-card sorts, the local sort and the
     re-sort of its receive buffer (``n`` words at most, ``nv`` value
-    words, keys of ``dtype``; ``ring``: the ring would run on the network
-    engine): "radix" where ``sort_engine`` gives the single-card sort of
-    such words the radix engine, unless the tree or the ring, whose merges
-    are bitonic stages, is asked for; else "bitonic" (the network engine)
-    or "xla" (the host engine). Unlike the reference, whose u32 network
-    cannot carry them, values of any width ride the network as 32-bit
-    words."""
-    if (sort_engine(cfg, device_type, dtype, n, value_words=nv) == "radix"
-            and cfg.dist_local_merge != "tree" and not ring):
-        return "radix"
-    return ("bitonic" if device_engine(cfg, device_type) == "network"
-            else "xla")
+    words, keys of ``dtype``): ``sort_engine``'s engine for the
+    single-card sort of such words, named as the witness names it:
+    "radix", "bitonic" (the network engine) or "xla" (the host and hybrid
+    engines). Unlike the reference, whose u32 network cannot carry them,
+    values of any width ride the network as 32-bit words."""
+    return {"radix": "radix", "network": "bitonic"}.get(
+        sort_engine(cfg, device_type, dtype, n, value_words=nv), "xla")
+
+
+def _merge_mode(engine: str, d: int) -> str:
+    """The local merge on ``engine`` at D = d: the tree where its merges
+    run, on the network engine at a power-of-two d; else the re-sort."""
+    return "tree" if engine == "bitonic" and d & (d - 1) == 0 else "sort"
 
 
 # --- collectives -----------------------------------------------------------
-
-def _pinned(t: torch.Tensor) -> torch.Tensor:
-    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    return h.copy_(t)
-
-
-def _sendrecv(send: torch.Tensor, dst: int, recv: torch.Tensor, src: int,
-              group) -> None:
-    """One ring hop: send to ``dst`` and receive from ``src`` (mesh
-    ranks) in one batch, so that no rank blocks in a send; a side with
-    nothing to move posts nothing (both ends know the sizes). gloo's
-    point-to-point reads host memory only, so on a gloo group a CUDA
-    tensor goes through pinned host buffers."""
-    staged = send.is_cuda and dist.get_backend(group) == "gloo"
-    hs = _pinned(send) if staged else send
-    hr = (torch.empty(recv.shape, dtype=recv.dtype, pin_memory=True)
-          if staged else recv)
-    ops = []
-    if hs.numel():
-        ops.append(dist.P2POp(dist.isend, hs,
-                              dist.get_global_rank(group, dst), group))
-    if hr.numel():
-        ops.append(dist.P2POp(dist.irecv, hr,
-                              dist.get_global_rank(group, src), group))
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-    if staged:
-        recv.copy_(hr)
-
 
 def _gather_rows(t: torch.Tensor, group) -> torch.Tensor:
     """``all_gather`` of one small 1-D tensor a rank; returns the [D, len]
@@ -252,68 +180,6 @@ def _global_split(n_keys: int, n_values: int, d: int, group):
         raise ValueError(f"the ranks' shard lengths {got} are not shard_1d's "
                          f"split of n={n} over {d} ranks ({want})")
     return n, m
-
-
-# --- the exchanges ---------------------------------------------------------
-
-def _columns(ops: torch.Tensor):
-    """The streams of an (len, ns) exchange buffer, contiguous."""
-    return tuple(ops.t().contiguous())
-
-
-def _filled(fills: torch.Tensor, length: int) -> torch.Tensor:
-    return fills.expand(length, fills.shape[0]).clone()
-
-
-def _exchange_ragged(ops, send_sizes, recv_sizes, out_len: int, fills,
-                     group):
-    """Ragged all-to-all: ops (m, ns) holds the segments for ranks 0..D-1
-    back to back from offset 0; they land left-packed in sender order
-    (``_plan_from_counts``' send_out_off), the rest of the [out_len]
-    buffer holds the fills."""
-    out = _filled(fills, out_len)
-    total = sum(recv_sizes)
-    dist.all_to_all_single(out[:total], ops[:sum(send_sizes)],
-                           list(recv_sizes), list(send_sizes), group=group)
-    return out
-
-
-def _compact(pieces, out_len: int, fills):
-    out = _filled(fills, out_len)
-    total = sum(p.shape[0] for p in pieces)
-    if total:
-        out[:total] = torch.cat(pieces)
-    return out
-
-
-def _cells(ops, input_offsets, width: int, fills):
-    """The D windows of ``width`` rows starting at the input offsets."""
-    padded = torch.cat([ops, _filled(fills, width)])
-    return torch.stack([padded[o:o + width] for o in input_offsets])
-
-
-def _exchange_dense(ops, input_offsets, recv_sizes, out_len: int, fills,
-                    group):
-    """Fixed full cells: each rank ships D cells of its whole length (a
-    rank may send all it holds to one receiver), so any plan fits."""
-    cells = _cells(ops, input_offsets, ops.shape[0], fills)
-    swapped = torch.empty_like(cells)
-    dist.all_to_all_single(swapped, cells, group=group)
-    return _compact([swapped[i, :r] for i, r in enumerate(recv_sizes)],
-                    out_len, fills)
-
-
-def _exchange_dense_bounded(ops, input_offsets, recv_sizes, out_len: int,
-                            fills, cap: int, me: int, group):
-    """Fixed cells of ``cap`` rows (the caller has checked that every
-    off-diagonal cell fits); the diagonal segment, the largest for a
-    balanced plan, is read from this rank's own buffer."""
-    cells = _cells(ops, input_offsets, cap, fills)
-    swapped = torch.empty_like(cells)
-    dist.all_to_all_single(swapped, cells, group=group)
-    pieces = [ops[input_offsets[me]:input_offsets[me] + r] if i == me
-              else swapped[i, :r] for i, r in enumerate(recv_sizes)]
-    return _compact(pieces, out_len, fills)
 
 
 # --- local sorts and merges ------------------------------------------------
@@ -391,109 +257,6 @@ def _merge_runs_tree(streams, num_keys: int, recv_sizes, buf: int, m: int,
     return _fit(blocks[0], buf)
 
 
-def _merge_runs_rank(streams, recv_sizes, recv_total: int, mask: int):
-    """The D received runs merged by computing each element's rank: its
-    index in its run, plus for each other run the elements there that
-    precede it (x < k in later runs, x <= k in earlier ones), both by
-    ``torch.searchsorted`` on the masked keys; the streams are then
-    scattered. Slots past recv_total stay where they are."""
-    key = ordered(streams[0] & mask)
-    dev = key.device
-    buf = key.shape[0]
-    lens = torch.tensor(recv_sizes, dtype=torch.int64, device=dev)
-    starts = torch.cumsum(lens, 0) - lens
-    t = torch.arange(buf, device=dev)
-    seg = torch.searchsorted(starts, t, right=True) - 1
-    rank = t - starts[seg]
-    for r, (st, ln) in enumerate(zip(starts.tolist(), recv_sizes)):
-        run = key[st:st + ln]
-        before = torch.searchsorted(run, key, right=True)    # x <= k
-        below = torch.searchsorted(run, key)                 # x < k
-        rank += torch.where(seg > r, before, torch.where(seg < r, below, 0))
-    rank = torch.where(t < recv_total, rank, t)
-    return tuple(torch.empty_like(s).scatter_(0, rank, s) for s in streams)
-
-
-def _merge_runs_native(streams, recv_sizes, mask: int):
-    """The D received runs merged by the host library's stable k-way
-    merge (``runtime/native.py``; ties keep run order) of the masked
-    keys; the streams follow its permutation. CPU tensors only."""
-    from ..runtime import native
-
-    total = sum(recv_sizes)
-    off = np.zeros(len(recv_sizes) + 1, np.int64)
-    off[1:] = np.cumsum(recv_sizes)
-    mk = (streams[0][:total] & mask).numpy().view(np.uint32)
-    _, perm = native.host_merge(mk, off,
-                                values=np.arange(total, dtype=np.uint32))
-    perm = torch.from_numpy(perm.astype(np.int64))
-    outs = []
-    for s in streams:
-        o = s.clone()
-        o[:total] = s[:total][perm]
-        outs.append(o)
-    return tuple(outs)
-
-
-def _ring_exchange_merge(send_streams, input_offsets, c, me: int, m: int,
-                         d: int, buf: int, cellcap: int, group,
-                         num_keys: int, with_tag: bool, mask,
-                         carry_full: bool):
-    """D - 1 hops: hop t sends this rank's segment for rank me + t and
-    receives rank me - t's segment for it; the pairwise merges of the
-    runs that have arrived (a binary counter: level-0 merges fire as
-    pairs land) run between the hops. Hops move the segments' exact
-    lengths (both ends know them from ``c``); each received run becomes
-    a block of ``cellcap`` words (the caller has checked max(c) <=
-    cellcap) with the stream layout of the all-to-all path's merges:
-    masked key, [tag = sender * cellcap + index, whose order is the
-    all-to-all's arrival order], [full key], payloads. Returns the
-    merged streams, length buf."""
-    sends = torch.stack(send_streams)
-    dev = sends.device
-    buf_al = 1 << max(10, (buf - 1).bit_length())
-    col = torch.arange(cellcap, dtype=torch.int64, device=dev)
-    levels: list = []
-
-    def as_run(seg: torch.Tensor, src: int) -> torch.Tensor:
-        size = seg.shape[1]
-        rows = [seg[0] if mask is None else seg[0] & mask]
-        if with_tag:
-            rows.append(wrap_i32(src * cellcap + col[:size]))
-        if carry_full:
-            rows.append(seg[0])
-        return _pad_cols(torch.stack(rows + list(seg[1:])), cellcap)
-
-    def insert(blk: torch.Tensor) -> None:
-        k = 0
-        while k < len(levels) and levels[k] is not None:
-            blk = _merge_block(levels[k], blk, num_keys, buf_al)
-            levels[k] = None
-            k += 1
-        if k == len(levels):
-            levels.append(blk)
-        else:
-            levels[k] = blk
-
-    def segment(dst: int) -> torch.Tensor:
-        o = input_offsets[dst]
-        return sends[:, o:o + int(c[me, dst])]
-
-    insert(as_run(segment(me), me))     # the diagonal stays home
-    for t in range(1, d):
-        dst, src = (me + t) % d, (me - t) % d
-        recv = torch.empty((sends.shape[0], int(c[src, me])),
-                           dtype=torch.int32, device=dev)
-        _sendrecv(segment(dst).contiguous(), dst, recv, src, group)
-        insert(as_run(recv, src))
-    fin = None
-    for blk in levels:
-        if blk is not None:
-            fin = blk if fin is None else _merge_block(fin, blk, num_keys,
-                                                       buf_al)
-    return _fit(fin, buf)
-
-
 # --- one rank's sort -------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -505,41 +268,24 @@ class _Rank:
     m: int
     s: int
     group: object
-    use_ragged: bool
     engine: str
-    cfg: Config
 
 
 def _exchange_all(r: _Rank, streams, fills, send_sizes, recv_sizes,
-                  out_len: int, cmat, step: str):
-    """Exchange parallel streams under one plan, in one collective.
+                  out_len: int, step: str):
+    """Exchange parallel streams under one plan, in one ragged
+    all-to-all: the segments for ranks 0..D-1 sit back to back from
+    offset 0 and land left-packed in sender order (``_plan_from_counts``'
+    send_out_off); the rest of each [out_len] stream holds its fill.
     Returns the [out_len] streams."""
     ops = torch.stack(streams, 1)
     fl = torch.tensor(fills, dtype=torch.int32, device=ops.device)
-    offsets = np.concatenate([[0], np.cumsum(send_sizes)[:-1]]).tolist()
-    cap = _dense_cell_cap(r.m, r.d)
-    if r.use_ragged:
-        mode = "ragged"
-    elif not r.cfg.dist_dense_bounded or cap >= r.m:
-        mode = "dense full"
-    else:
-        # The same branch on every rank: cmat is all-gathered (or derived
-        # from what is), identical everywhere, and both branches hold a
-        # collective.
-        off = cmat.clone()
-        off.fill_diagonal_(0)
-        mode = "dense bounded" if int(off.max()) <= cap else "dense full"
-    with _step(f"{step} {mode}", ops.device):
-        if mode == "ragged":
-            out = _exchange_ragged(ops, send_sizes, recv_sizes, out_len, fl,
-                                   r.group)
-        elif mode == "dense full":
-            out = _exchange_dense(ops, offsets, recv_sizes, out_len, fl,
-                                  r.group)
-        else:
-            out = _exchange_dense_bounded(ops, offsets, recv_sizes, out_len,
-                                          fl, cap, r.me, r.group)
-    return _columns(out)
+    with _step(f"{step} ragged", ops.device):
+        out = fl.expand(out_len, fl.shape[0]).clone()
+        dist.all_to_all_single(out[:sum(recv_sizes)], ops[:sum(send_sizes)],
+                               list(recv_sizes), list(send_sizes),
+                               group=r.group)
+    return tuple(out.t().contiguous())
 
 
 def _shard_sort(r: _Rank, k: torch.Tensor, vwords, sort_bits: int):
@@ -599,39 +345,17 @@ def _shard_sort(r: _Rank, k: torch.Tensor, vwords, sort_bits: int):
         c = _gather_rows(torch.tensor(send_sizes), r.group)
         _, recv = _plan_from_counts(c, me)
         recv_sizes = recv.tolist()
-        recv_total = sum(recv_sizes)
         buf = _recv_buf_len(m, d, s)
 
-    ops1 = (sfull,) + svals
-    fl1 = (FF,) + (0,) * nv
-    cellcap = _tree_cell_cap(buf, m, d)
-
-    # 4. the exchange (4-5 interleaved under the ring)
-    if _use_ring(r.cfg, engine, d, m, s):
-        # The same branch on every rank (c is all-gathered); each holds
-        # collectives, the ring's hops or the all-to-all.
-        if int(c.max()) <= cellcap:
-            with _step("exchange + merge ring", dev):
-                out = _ring_exchange_merge(
-                    ops1, bounds[:d], c, me, m, d, buf, cellcap, r.group,
-                    num_keys=1 if fast else 2, with_tag=not fast,
-                    mask=None if fast else mask, carry_full=partial)
-            mf, mv = (out[2] if partial else out[0]), tail(out)
-        else:
-            ex = _exchange_all(r, ops1, fl1, send_sizes, recv_sizes, buf, c,
-                               "exchange")
-            with _step("merge sort (ring skew)", dev):
-                mf, mv = resort(ex[0], ex[1:], buf)
-        return _rebalance(r, mf, mv, c)
-
-    ex = _exchange_all(r, ops1, fl1, send_sizes, recv_sizes, buf, c,
-                       "exchange")
+    # 4. the exchange
+    ex = _exchange_all(r, (sfull,) + svals, (FF,) + (0,) * nv, send_sizes,
+                       recv_sizes, buf, "exchange")
     r_full, r_vals = ex[0], ex[1:]
-    mode = _resolve_merge_mode(r.cfg, engine, d, dev)
-    if mode == "tree" and max(recv_sizes) > cellcap:
+    mode = _merge_mode(engine, d)
+    if mode == "tree" and max(recv_sizes) > _tree_cell_cap(buf, m, d):
         mode = "sort (tree skew)"      # a run too long for its block
-    # 5. the local merge. Slots past recv_total are the buffer's tail
-    # (every segment lands from offset 0), so the position lane alone
+    # 5. the local merge. Slots past the received total are the buffer's
+    # tail (every segment lands from offset 0), so the position lane alone
     # keeps them last, and arrival order breaks masked-key ties.
     with _step(f"merge {mode}", dev):
         if mode == "tree":
@@ -644,12 +368,6 @@ def _shard_sort(r: _Rank, k: torch.Tensor, vwords, sort_bits: int):
                     (r_full & mask, pos) + ((r_full,) if partial else ())
                     + r_vals, 2, recv_sizes, buf, m, d)
                 mf, mv = (out[2] if partial else out[0]), tail(out)
-        elif mode == "native":
-            out = _merge_runs_native(ex, recv_sizes, mask)
-            mf, mv = out[0], out[1:]
-        elif mode == "rank":
-            out = _merge_runs_rank(ex, recv_sizes, recv_total, mask)
-            mf, mv = out[0], out[1:]
         else:
             mf, mv = resort(r_full, r_vals, buf)
     return _rebalance(r, mf, mv, c)
@@ -674,7 +392,7 @@ def _rebalance(r: _Rank, mf, mv, c: torch.Tensor):
     send2 = c2[r.me].tolist()
     _, recv2 = _plan_from_counts(c2, r.me)
     out = _exchange_all(r, (mf,) + tuple(mv), (FF,) + (0,) * len(mv), send2,
-                        recv2.tolist(), m, c2, "rebalance")
+                        recv2.tolist(), m, "rebalance")
     return out[0], out[1:]
 
 
@@ -692,8 +410,7 @@ def _validate(keys: torch.Tensor, sort_bits: int) -> None:
 
 
 def _dist_sort_impl(keys, values, sort_bits: int, descending: bool, mesh,
-                    config: Config | None, use_ragged: bool | None,
-                    padded_out: bool):
+                    config: Config | None, padded_out: bool):
     """Returns (keys, values or None, pad): this rank's shard of the
     sorted array, its [m] padded shard under ``padded_out``."""
     global last_exchange, last_local_engine, last_local_merge
@@ -721,18 +438,14 @@ def _dist_sort_impl(keys, values, sort_bits: int, descending: bool, mesh,
     n_here = keys.shape[0]
     n, m = _global_split(n_here, n_here if values is None
                          else values.shape[0], d, group)
-    use_ragged = True if use_ragged is None else use_ragged
-    s = _samples(m, d, use_ragged, cfg)
+    s = _samples(m, d)
     vw, undo_v = ((), None) if values is None else _value_words(
         values.contiguous())
     engine = _local_engine(cfg, keys.device.type, keys.dtype,
-                           _recv_buf_len(m, d, s), len(vw),
-                           _use_ring(cfg, "bitonic", d, m, s))
-    last_exchange = "ragged" if use_ragged else "dense"
+                           _recv_buf_len(m, d, s), len(vw))
+    last_exchange = "ragged"
     last_local_engine = engine
-    last_local_merge = _resolve_merge_mode(cfg, engine, d, keys.device)
-    if _use_ring(cfg, engine, d, m, s):
-        last_exchange = last_local_merge = "ring"
+    last_local_merge = _merge_mode(engine, d)
     if n == 0:
         return keys, values, 0
 
@@ -747,7 +460,7 @@ def _dist_sort_impl(keys, values, sort_bits: int, descending: bool, mesh,
                                      device=k.device)])
         vw = tuple(torch.cat([v, torch.zeros(m - n_here, dtype=torch.int32,
                                              device=v.device)]) for v in vw)
-    r = _Rank(d, me, m, s, group, use_ragged, engine, cfg)
+    r = _Rank(d, me, m, s, group, engine)
     ks, vs = _shard_sort(r, k, vw, sort_bits)
     if not padded_out:
         keep = min(m, max(0, n - me * m))
@@ -767,7 +480,7 @@ def dist_sort_padded(keys: torch.Tensor, sort_bits: int = 32, *,
     order: the n sorted keys, then ``pad`` = D*m - n order-extreme
     sentinels (the largest key ascending, the smallest descending)."""
     ks, _, pad = _dist_sort_impl(keys, None, sort_bits, descending, mesh,
-                                 config, use_ragged, True)
+                                 config, True)
     return ks, pad
 
 
@@ -779,7 +492,7 @@ def dist_sort_kv_padded(keys: torch.Tensor, values: torch.Tensor,
     """Distributed key-value sort that keeps the pads; see
     ``dist_sort_padded``. Returns (keys, values, pad); value pads are 0."""
     return _dist_sort_impl(keys, values, sort_bits, descending, mesh,
-                           config, use_ragged, True)
+                           config, True)
 
 
 @profiled("dist_sort")
@@ -793,12 +506,13 @@ def dist_sort(keys: torch.Tensor, sort_bits: int = 32, *,
     16-bit) array, in ``shard_1d``'s split over ``mesh`` (default:
     ``make_sort_mesh()``). Returns this rank's shard of the sorted array
     in the same split, bit for bit the single-card ``sort``'s, with
-    ``descending`` stable too. ``use_ragged`` None means the ragged
-    exchange; False the dense one. ``config.dist_exchange="ring"`` takes
-    precedence over either where the ring runs.
+    ``descending`` stable too. ``use_ragged`` is the reference's choice
+    between its ragged and dense exchanges; the port always runs the
+    ragged one, so False changes nothing and ``last_exchange`` reads
+    "ragged".
     """
     return _dist_sort_impl(keys, None, sort_bits, descending, mesh, config,
-                           use_ragged, False)[0]
+                           False)[0]
 
 
 @profiled("dist_sort_kv")
@@ -809,5 +523,5 @@ def dist_sort_kv(keys: torch.Tensor, values: torch.Tensor,
     """Distributed stable key-value sort; see ``dist_sort``. ``values``
     (any 8- to 64-bit dtype) is this rank's shard, of the keys' length."""
     ks, vs, _ = _dist_sort_impl(keys, values, sort_bits, descending, mesh,
-                                config, use_ragged, False)
+                                config, False)
     return ks, vs

@@ -1445,21 +1445,22 @@ def test_radix_capture_and_replay(dev, op):
         assert _same_tree(out, run(static, NETWORK)), kind
 
 
-# config -> (its fields; the local engine and merge of dist_sort and of
-# stable dist_sort_kv with one value word, at D = 4)
+# case -> (Config fields, value dtype; the local engine and merge of
+# dist_sort, and of stable dist_sort_kv, at D = 4)
 DIST_ENGINES = {
-    "auto": ({}, ("radix", "sort")),
-    "network": ({"engine": "network"}, ("bitonic", "tree")),
-    "tree": ({"dist_local_merge": "tree"}, ("bitonic", "tree")),
-    "ring": ({"dist_exchange": "ring"}, ("bitonic", "ring")),
+    "auto": ({}, torch.int32, ("radix", "sort"), ("radix", "sort")),
+    "network": ({"engine": "network"}, torch.int32, ("bitonic", "tree"),
+                ("bitonic", "tree")),
+    "64-bit values": ({}, torch.int64, ("radix", "sort"),
+                      ("bitonic", "tree")),
 }
 
 
 def _gloo_dist_rank(rank: int, d: int, tmp: str, n: int, name: str) -> None:
     """One of d gloo ranks sharing card 0: dist_sort and stable
-    dist_sort_kv of its shard under the config DIST_ENGINES names, held
-    against its slice of the single-card ops; writes the local engine
-    and merge it took and the launches."""
+    dist_sort_kv of its shard under the config and values DIST_ENGINES
+    names, held against its slice of the single-card ops; writes the
+    local engine and merge each call took and its launches."""
     import datetime
     import importlib
     import json
@@ -1469,7 +1470,8 @@ def _gloo_dist_rank(rank: int, d: int, tmp: str, n: int, name: str) -> None:
     from sortx_torch.parallel import shard_1d
 
     ds = importlib.import_module("sortx_torch.parallel.dist_sort")
-    cfg = sortx_torch.Config(**DIST_ENGINES[name][0])
+    fields, vdtype = DIST_ENGINES[name][:2]
+    cfg = sortx_torch.Config(**fields)
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
                             world_size=d, rank=rank,
@@ -1478,12 +1480,14 @@ def _gloo_dist_rank(rank: int, d: int, tmp: str, n: int, name: str) -> None:
         dev = torch.device("cuda", 0)
         mesh = sortx_torch.make_sort_mesh()
         keys = _radix_words("uniform", n, dev, seed=5).view(torch.uint32)
-        vals = torch.arange(n, dtype=torch.int32, device=dev)
+        vals = torch.arange(n, dtype=vdtype, device=dev)
         wk, wv = sortx_torch.sort_kv(keys, vals)
         launches.clear()
         out = sortx_torch.dist_sort(shard_1d(keys, mesh).clone(), mesh=mesh,
                                     config=cfg)
-        res = {"engine": ds.last_local_engine, "merge": ds.last_local_merge}
+        res = {"engine": ds.last_local_engine, "merge": ds.last_local_merge,
+               "launches": dict(launches)}
+        launches.clear()
         ks, vs = sortx_torch.dist_sort_kv(shard_1d(keys, mesh).clone(),
                                           shard_1d(vals, mesh).clone(),
                                           mesh=mesh, config=cfg)
@@ -1494,7 +1498,7 @@ def _gloo_dist_rank(rank: int, d: int, tmp: str, n: int, name: str) -> None:
                                  shard_1d(wk, mesh).view(torch.int32))
                      and torch.equal(vs, shard_1d(wv, mesh))),
             kv_engine=ds.last_local_engine, kv_merge=ds.last_local_merge,
-            launches=dict(launches))
+            kv_launches=dict(launches))
         with open(f"{tmp}/rank{rank}.json", "w") as f:
             json.dump(res, f)
     finally:
@@ -1505,9 +1509,9 @@ def _gloo_dist_rank(rank: int, d: int, tmp: str, n: int, name: str) -> None:
 def test_four_rank_dist_sort_engines(dev, tmp_path, name):
     """dist_sort's local sorts and merge: under "auto" the radix engine
     and the re-sort (K9 / K10, no network pass); an explicit network
-    engine, tree or ring keeps the network and its merges. Four gloo
-    ranks sharing the card, 2^18 keys in all, each rank's outputs its
-    slice of the single-card ops'."""
+    engine, or 64-bit values (two value words) under "auto", keep the
+    network and its merge tree. Four gloo ranks sharing the card, 2^18
+    keys in all, each rank's outputs its slice of the single-card ops'."""
     import json
 
     import torch.multiprocessing as mp
@@ -1515,15 +1519,17 @@ def test_four_rank_dist_sort_engines(dev, tmp_path, name):
     d = 4
     mp.spawn(_gloo_dist_rank, args=(d, str(tmp_path), 1 << 18, name),
              nprocs=d, join=True)
-    want = DIST_ENGINES[name][1]
+    want_sort, want_kv = DIST_ENGINES[name][2:]
     for r in range(d):
         res = json.loads((tmp_path / f"rank{r}.json").read_text())
         assert res["sort"] and res["sort_kv"], res
-        assert (res["engine"], res["merge"]) == want, res
-        assert (res["kv_engine"], res["kv_merge"]) == want, res
-        radix = res["launches"].get("radix_onesweep", 0)
-        network = res["launches"].get("bitonic_global", 0)
-        if want[0] == "radix":
-            assert radix > 0 and network == 0, res
-        else:
-            assert network > 0 and radix == 0, res
+        assert (res["engine"], res["merge"]) == want_sort, res
+        assert (res["kv_engine"], res["kv_merge"]) == want_kv, res
+        for (engine, _), counts in ((want_sort, res["launches"]),
+                                    (want_kv, res["kv_launches"])):
+            radix = counts.get("radix_onesweep", 0)
+            network = counts.get("bitonic_global", 0)
+            if engine == "radix":
+                assert radix > 0 and network == 0, res
+            else:
+                assert network > 0 and radix == 0, res

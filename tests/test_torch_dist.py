@@ -7,7 +7,7 @@ runs the same seeded numpy input over D = 2, 3 and 4 gloo ranks, one
 pool of spawned processes per D for the whole file
 (tests/torch_dist_pool.py), and the test concatenates the ranks'
 shards. The port runs its network engine (the plain versions of K1-K3
-on the CPU, so the tree and the ring really merge), its radix engine
+on the CPU, so the tree really merges), its radix engine
 (the plain versions of K9 / K10: the local sort and the re-sort) and
 its host engine;
 its witnesses are held against the reference's own resolvers for the
@@ -80,7 +80,8 @@ def arrays(*xs):
 
 
 @functools.cache
-def ref_sort(name: str, sort_bits: int = 32, kv: bool = False):
+def ref_sort(name: str, sort_bits: int = 32, kv: bool = False,
+             descending: bool = False):
     keys, values = inputs(name)
     # the reference's d > 1 program fails on an empty array; its d = 1
     # path is the single-card sort
@@ -88,8 +89,10 @@ def ref_sort(name: str, sort_bits: int = 32, kv: bool = False):
     if kv:
         return arrays(*sortx.dist_sort_kv(jnp.asarray(keys),
                                           jnp.asarray(values), sort_bits,
-                                          mesh=mesh, config=HOST))
-    return arrays(sortx.dist_sort(jnp.asarray(keys), sort_bits, mesh=mesh,
+                                          descending=descending, mesh=mesh,
+                                          config=HOST))
+    return arrays(sortx.dist_sort(jnp.asarray(keys), sort_bits,
+                                  descending=descending, mesh=mesh,
                                   config=HOST))
 
 
@@ -113,27 +116,18 @@ def same(got, want):
         assert g.tobytes() == w.tobytes()
 
 
-def ref_witness(cfg, engine: str, d: int, n: int, use_ragged=None):
-    """The reference's witnesses for the port's engine ("bitonic", "xla"
-    or "radix", which the reference's resolvers take as any engine but
-    the network), through its own resolvers; None means ragged in the
-    port."""
-    use_ragged = True if use_ragged is None else use_ragged
-    rcfg = sortx.Config(dist_local_merge=cfg.dist_local_merge,
-                        dist_exchange=cfg.dist_exchange,
-                        dist_dense_bounded=cfg.dist_dense_bounded)
-    m = -(-n // d)
-    s = min(max(d, min(64, m)), m)          # sortx/parallel/dist_sort.py
-    if not use_ragged and rcfg.dist_dense_bounded:    # :1095-1103
-        s = min(m, max(s, d ** 3))
-    if REF._use_ring(rcfg, engine, d, m, s):
-        return ("ring", engine, "ring")
-    return ("ragged" if use_ragged else "dense", engine,
-            REF._resolve_merge_mode(rcfg, engine, d))
+def ref_witness(engine: str, d: int):
+    """The witnesses of the port's one schedule for the port's engine
+    ("bitonic", "xla" or "radix", which the reference's resolver takes as
+    any engine but the network): the ragged exchange (whatever
+    ``use_ragged`` says), and the reference's merge under its default
+    config."""
+    return ("ragged", engine, REF._resolve_merge_mode(sortx.Config(),
+                                                      engine, d))
 
 
-def check_witness(res, cfg, engine: str, d: int, n: int, use_ragged=None):
-    want = ref_witness(cfg, engine, d, n, use_ragged)
+def check_witness(res, engine: str, d: int):
+    want = ref_witness(engine, d)
     assert all(tuple(x["witness"]) == want for x in res), (
         [x["witness"] for x in res], want)
 
@@ -141,14 +135,6 @@ def check_witness(res, cfg, engine: str, d: int, n: int, use_ragged=None):
 # engine -> the local engine it gives: the radix engine's plain versions
 # of K9 / K10 run on the CPU under Config(engine="radix")
 ENGINES = {"network": "bitonic", "radix": "radix", "host": "xla"}
-
-
-def radix_word(merge: str, exchange: str, d: int) -> str:
-    """The local engine under Config(engine="radix"): the network where
-    the tree is asked for or the ring runs (a power-of-two d), the radix
-    engine otherwise."""
-    ring = exchange == "ring" and d & (d - 1) == 0
-    return "bitonic" if merge == "tree" or ring else "radix"
 
 
 @pytest.mark.parametrize("name", ["uniform", "dups", "tiny", "empty",
@@ -166,69 +152,79 @@ def test_inputs_match_sortx(pools, d, name):
         if engine != "host":
             res = pools[d].run("dist_sort", keys=keys, config=cfg)
             same(gather(res, keys.size), want)
-            check_witness(res, cfg, word, d, keys.size)
+            check_witness(res, word, d)
         res = pools[d].run("dist_sort_kv", keys=keys, values=values,
                            config=cfg)
         same(gather(res, keys.size), want_kv)
-        check_witness(res, cfg, word, d, keys.size)
+        check_witness(res, word, d)
 
 
-@pytest.mark.parametrize("exchange", ["a2a", "ring"])
-@pytest.mark.parametrize("merge", ["auto", "tree", "rank", "native", "sort"])
+# case -> (input, sort_bits, descending, key-value, extra keywords)
+SCHEDULE_CASES = {
+    "dups_kv": ("dups", 32, False, True, {}),
+    "bits16_keys": ("uniform", 16, False, False, {}),
+    "bits12_kv": ("uniform", 12, False, True, {}),
+    "descending_kv": ("dups", 32, True, True, {}),
+    # a presorted shard arrives whole at its own rank: at D = 4 a run of
+    # m = 1025 words, longer than the tree's 1024-word block
+    "presorted_kv": ("presorted", 32, False, True, {}),
+    "not_ragged_kv": ("dups", 32, False, True, {"use_ragged": False}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SCHEDULE_CASES))
+@pytest.mark.parametrize("engine", sorted(ENGINES))
 @pytest.mark.parametrize("d", DS)
-def test_merges_and_exchanges_match_sortx(pools, d, merge, exchange):
-    """Every local merge and both schedules, under the ragged exchange
-    and the dense one with bounded and with full cells (stable key-value
-    sorts of duplicate-heavy keys), and a keys-only sort by the low 16
-    bits: on the network engine, and under Config(engine="radix"), whose
-    local sorts keep the network only for the tree and the ring."""
-    for engine in ("network", "radix"):
-        word = "bitonic" if engine == "network" else radix_word(
-            merge, exchange, d)
-        for ragged, bounded in ((True, True), (False, True),
-                                (False, False)):
-            cfg = sortx_torch.Config(engine=engine, dist_local_merge=merge,
-                                     dist_exchange=exchange,
-                                     dist_dense_bounded=bounded)
-            keys, values = inputs("dups")
-            want = ref_sort("dups", kv=True)
-            res = pools[d].run("dist_sort_kv", keys=keys, values=values,
-                               config=cfg, use_ragged=ragged)
-            same(gather(res, N), want)
-            check_witness(res, cfg, word, d, N, ragged)
-            merged = {s for x in res for s in x["steps"]
-                      if s.startswith(("merge", "exchange + merge"))}
-            assert merged, res[0]["steps"]
-            assert all(f"local sort {word}" in x["steps"] for x in res), (
-                res[0]["steps"])
-        keys, _ = inputs("uniform")
-        want = ref_sort("uniform", 16)
-        res = pools[d].run("dist_sort", keys=keys, sort_bits=16, config=cfg)
-        same(gather(res, N), want)
-        check_witness(res, cfg, word, d, N)
+def test_schedule_matches_sortx(pools, d, engine, case):
+    """The one schedule under the default config on each engine: the
+    local sort, the ragged exchange, the merge the engine implies (the
+    tree on the network at a power-of-two D, with the re-sort where a run
+    outgrows its block; the re-sort elsewhere) and the ragged rebalance,
+    bit for bit the reference's. use_ragged=False changes nothing: the
+    port has no dense exchange."""
+    name, sort_bits, desc, kv, kw = SCHEDULE_CASES[case]
+    keys, values = inputs(name)
+    word = ENGINES[engine]
+    cfg = sortx_torch.Config(engine=engine)
+    if kv:
+        res = pools[d].run("dist_sort_kv", keys=keys, values=values,
+                           sort_bits=sort_bits, descending=desc, config=cfg,
+                           **kw)
+    else:
+        res = pools[d].run("dist_sort", keys=keys, sort_bits=sort_bits,
+                           descending=desc, config=cfg, **kw)
+    same(gather(res, N), ref_sort(name, sort_bits, kv, desc))
+    check_witness(res, word, d)
+    # each rank re-sorts where a run it received outgrows the tree's block
+    merges = ({"merge tree", "merge sort (tree skew)"} if word == "bitonic"
+              and d != 3 else {"merge sort"})
+    base = [f"local sort {word}", "plan", "exchange ragged"]
+    for x in res:
+        assert x["steps"][:3] == base and x["steps"][3] in merges and (
+            x["steps"][4:] == ["rebalance ragged"]), x["steps"]
+    skewed = any(x["steps"][3] == "merge sort (tree skew)" for x in res)
+    assert skewed == (word == "bitonic" and name == "presorted" and d == 4)
 
 
 def test_every_branch_runs(pools):
-    """At D = 4: uniform keys take the bounded dense cells, reversed keys
-    the full ones (a whole shard goes to one rank); presorted and
-    all-equal keys arrive as runs too long for the tree's and the ring's
-    blocks, which re-sort instead."""
+    """At D = 4 the schedule has no other steps than these: the network's
+    local sort and merge tree on uniform keys, its re-sort where presorted
+    and all-equal keys arrive as runs too long for the tree's blocks, and
+    the radix engine's local sort and re-sort."""
     seen = set()
-    for name in ("uniform", "reversed", "presorted", "equal"):
-        keys, values = inputs(name)
-        for exchange in ("a2a", "ring"):
-            for ragged in (True, False):
-                cfg = sortx_torch.Config(engine="network",
-                                         dist_exchange=exchange)
-                res = pools[4].run("dist_sort_kv", keys=keys, values=values,
-                                   config=cfg, use_ragged=ragged)
-                same(gather(res, N), ref_sort(name, kv=True))
-                seen |= {s for x in res for s in x["steps"]}
-    assert {"local sort bitonic", "plan", "exchange ragged",
-            "exchange dense bounded", "exchange dense full", "merge tree",
-            "merge sort (tree skew)",
-            "exchange + merge ring", "merge sort (ring skew)",
-            "rebalance ragged", "rebalance dense bounded"} <= seen, seen
+    for engine, names in (("network", ("uniform", "reversed", "presorted",
+                                       "equal")),
+                          ("radix", ("uniform",))):
+        cfg = sortx_torch.Config(engine=engine)
+        for name in names:
+            keys, values = inputs(name)
+            res = pools[4].run("dist_sort_kv", keys=keys, values=values,
+                               config=cfg)
+            same(gather(res, N), ref_sort(name, kv=True))
+            seen |= {s for x in res for s in x["steps"]}
+    assert seen == {"local sort bitonic", "local sort radix", "plan",
+                    "exchange ragged", "merge tree", "merge sort",
+                    "merge sort (tree skew)", "rebalance ragged"}, seen
 
 
 def _f32_keys(rng):
@@ -307,7 +303,7 @@ def test_key_and_value_types_match_sortx(pools, case):
                                sort_bits=sort_bits, descending=desc,
                                config=cfg)
         same(gather(res, N), want)
-        check_witness(res, cfg, word, d, N)
+        check_witness(res, word, d)
         if values is not None:
             merge = "merge tree" if word == "bitonic" else "merge sort"
             assert all(merge in x["steps"] for x in res), res[0]["steps"]
@@ -395,41 +391,23 @@ def test_dist_scan_matches_sortx(pools, d, case, inclusive):
 
 
 def test_interpret_tree_matches_sortx_pallas(pools):
-    """The merge tree against the reference's Pallas network (interpret
-    mode, which costs about 0.3 ms an element: n = 1024, D = 2): outputs
-    and every witness equal."""
+    """The default config on the network engine at D = 4 (the merge tree)
+    against the reference's Pallas network (interpret mode, which costs
+    about 0.3 ms an element: n = 1024): outputs, engine and merge
+    witnesses equal. The reference runs its dense exchange, which its CPU
+    backend takes; the port's is ragged."""
     keys, _ = inputs("dups")
     keys = keys[:1024]
-    rcfg = sortx.Config(engine="pallas", interpret=True, engine_log_block=10,
-                        dist_local_merge="tree")
+    rcfg = sortx.Config(engine="pallas", interpret=True, engine_log_block=10)
     want = np.asarray(sortx.dist_sort(jnp.asarray(keys), mesh=sortx.
-                                      make_sort_mesh(2), config=rcfg,
+                                      make_sort_mesh(4), config=rcfg,
                                       use_ragged=False))
     ref_w = (REF.last_exchange, REF.last_local_engine, REF.last_local_merge)
     assert ref_w == ("dense", "bitonic", "tree")
-    res = pools[2].run("dist_sort", keys=keys, config=config_from_sortx(rcfg),
-                       use_ragged=False)
+    res = pools[4].run("dist_sort", keys=keys, config=config_from_sortx(rcfg))
     same(gather(res, keys.size), (want,))
-    assert all(tuple(x["witness"]) == ref_w for x in res)
+    assert all(tuple(x["witness"]) == ("ragged",) + ref_w[1:] for x in res)
     assert all("merge tree" in x["steps"] for x in res)
-
-
-def test_interpret_ring_matches_sortx_pallas(pools):
-    """The ring schedule against the reference's (interpret mode, n =
-    1024, D = 2): outputs and every witness equal."""
-    keys, _ = inputs("dups")
-    keys = keys[:1024]
-    rcfg = sortx.Config(engine="pallas", interpret=True, engine_log_block=10,
-                        dist_exchange="ring")
-    want = np.asarray(sortx.dist_sort(jnp.asarray(keys), mesh=sortx.
-                                      make_sort_mesh(2), config=rcfg))
-    ref_w = (REF.last_exchange, REF.last_local_engine, REF.last_local_merge)
-    assert ref_w == ("ring", "bitonic", "ring")
-    res = pools[2].run("dist_sort", keys=keys,
-                       config=config_from_sortx(rcfg))
-    same(gather(res, keys.size), (want,))
-    assert all(tuple(x["witness"]) == ref_w for x in res)
-    assert all("exchange + merge ring" in x["steps"] for x in res)
 
 
 def test_a_split_that_is_not_shard_1d_raises_on_every_rank(pools):
@@ -558,23 +536,3 @@ def test_one_rank_sorts_values_of_every_width_on_the_network(one_rank,
     same(arrays(to_numpy(ks), to_numpy(vs)), want)
     assert (port.last_exchange, port.last_local_engine,
             port.last_local_merge) == ("single", "bitonic", "single")
-
-
-@pytest.mark.parametrize("kw", [dict(dist_local_merge="rank"),
-                                dict(dist_local_merge="native"),
-                                dict(dist_exchange="ring"),
-                                dict(dist_dense_bounded=False)])
-def test_config_carries_the_dist_fields(kw):
-    got = config_from_sortx(sortx.Config(**kw))
-    want = sortx_torch.Config(**kw)
-    for f in ("dist_dense_bounded", "dist_local_merge", "dist_exchange"):
-        assert getattr(got, f) == getattr(want, f)
-
-
-@pytest.mark.parametrize("kw", [dict(dist_local_merge="merge"),
-                                dict(dist_exchange="a2a2")])
-def test_config_rejects_bad_dist_fields(kw):
-    with pytest.raises(ValueError):
-        sortx.Config(**kw)
-    with pytest.raises(ValueError):
-        sortx_torch.Config(**kw)

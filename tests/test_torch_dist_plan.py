@@ -25,10 +25,9 @@ MS = (0, 1, 7, 64, 1000, 1024, 4099, 65_536, (1 << 24) + 13, 1 << 25)
 
 @pytest.mark.parametrize("d", range(1, 9))
 def test_buffer_bounds_match_sortx(d):
-    """_dense_cell_cap, _recv_buf_len (over the sample counts the sort
-    takes) and _tree_cell_cap, on every receive buffer they meet."""
+    """_recv_buf_len (over sample counts about the one the sort takes)
+    and _tree_cell_cap, on every receive buffer they meet."""
     for m in MS:
-        assert PORT._dense_cell_cap(m, d) == REF._dense_cell_cap(m, d)
         for s in {0, 1, d, min(64, m), d ** 3, m} - ({0} if m else set()):
             buf = REF._recv_buf_len(m, d, s)
             assert PORT._recv_buf_len(m, d, s) == buf
@@ -37,71 +36,41 @@ def test_buffer_bounds_match_sortx(d):
 
 
 @pytest.mark.parametrize("d", range(1, 9))
-def test_samples_and_ring_gate_match_sortx(d):
-    """The port's sample count is the reference's inline rule
-    (dist_sort.py:1095-1103), and its ring gate and merge resolution
-    are the reference's for every config and engine (the port's "radix",
-    which the reference lacks, as any engine but the network)."""
+def test_samples_and_merge_match_sortx(d):
+    """The port's sample count is the reference's inline rule for its
+    ragged exchange (dist_sort.py:1095-1098), and its merge is the
+    reference's under the default config, for every engine (the port's
+    "radix", which the reference lacks, as any engine but the
+    network)."""
     for m in MS:
-        for ragged in (True, False):
-            for bounded in (True, False):
-                s = min(max(d, min(64, m)), m)
-                if not ragged and bounded:
-                    s = min(m, max(s, d ** 3))
-                cfg = sortx_torch.Config(dist_dense_bounded=bounded,
-                                         dist_exchange="ring")
-                assert PORT._samples(m, d, ragged, cfg) == s
-                rcfg = sortx.Config(dist_exchange="ring")
-                for engine in ("bitonic", "xla", "radix"):
-                    assert PORT._use_ring(cfg, engine, d, m, s) == \
-                        REF._use_ring(rcfg, engine, d, m, s)
-    for merge in ("auto", "tree", "rank", "native", "sort"):
-        for engine in ("bitonic", "xla", "radix"):
-            # the reference's native merge runs on its CPU backend, the
-            # port's on CPU tensors
-            assert PORT._resolve_merge_mode(
-                sortx_torch.Config(dist_local_merge=merge), engine, d,
-                torch.device("cpu")) == REF._resolve_merge_mode(
-                    sortx.Config(dist_local_merge=merge), engine, d)
+        assert PORT._samples(m, d) == min(max(d, min(64, m)), m)
+    for engine in ("bitonic", "xla", "radix"):
+        assert PORT._merge_mode(engine, d) == REF._resolve_merge_mode(
+            sortx.Config(), engine, d)
 
 
 U32 = torch.uint32
 # (Config fields, device, key dtype, words the re-sort may hold, value
-# words, the ring would run on the network) -> (local engine, merge at
-# D = 4)
+# words) -> (local engine, merge at D = 4)
 LOCAL_ENGINE = {
-    "auto on a card": (dict(), "cuda", U32, 1 << 20, 0, False,
-                       "radix", "sort"),
-    "auto, one value word": (dict(), "cuda", U32, 1 << 20, 1, False,
-                             "radix", "sort"),
-    "auto, f32 keys": (dict(), "cuda", torch.float32, 1 << 20, 1, False,
-                       "radix", "sort"),
-    "auto, 64-bit values": (dict(), "cuda", U32, 1 << 20, 2, False,
-                            "bitonic", "tree"),
-    "auto, 2^30 words": (dict(), "cuda", U32, 1 << 30, 0, False,
-                         "bitonic", "tree"),
-    "ring where it runs": (dict(dist_exchange="ring"), "cuda", U32, 1 << 20,
-                           0, True, "bitonic", "tree"),
-    "ring where it does not": (dict(dist_exchange="ring"), "cuda", U32,
-                               1 << 20, 0, False, "radix", "sort"),
-    "explicit tree": (dict(dist_local_merge="tree"), "cuda", U32, 1 << 20,
-                      1, False, "bitonic", "tree"),
-    "explicit rank": (dict(dist_local_merge="rank"), "cuda", U32, 1 << 20,
-                      1, False, "radix", "rank"),
+    "auto on a card": (dict(), "cuda", U32, 1 << 20, 0, "radix", "sort"),
+    "auto, one value word": (dict(), "cuda", U32, 1 << 20, 1, "radix",
+                             "sort"),
+    "auto, f32 keys": (dict(), "cuda", torch.float32, 1 << 20, 1, "radix",
+                       "sort"),
+    "auto, 64-bit values": (dict(), "cuda", U32, 1 << 20, 2, "bitonic",
+                            "tree"),
+    "auto, 2^30 words": (dict(), "cuda", U32, 1 << 30, 0, "bitonic",
+                         "tree"),
     "engine network": (dict(engine="network"), "cuda", U32, 1 << 20, 0,
-                       False, "bitonic", "tree"),
-    "engine host": (dict(engine="host"), "cuda", U32, 1 << 20, 0, False,
-                    "xla", "sort"),
-    "engine hybrid": (dict(engine="hybrid"), "cuda", U32, 1 << 20, 0, False,
-                      "xla", "sort"),
-    "auto on the host": (dict(), "cpu", U32, 1 << 20, 0, False, "xla",
-                         "sort"),
+                       "bitonic", "tree"),
+    "engine host": (dict(engine="host"), "cuda", U32, 1 << 20, 0, "xla",
+                    "sort"),
+    "engine hybrid": (dict(engine="hybrid"), "cuda", U32, 1 << 20, 0, "xla",
+                      "sort"),
+    "auto on the host": (dict(), "cpu", U32, 1 << 20, 0, "xla", "sort"),
     "engine radix on the host": (dict(engine="radix"), "cpu", U32, 1 << 20,
-                                 1, False, "radix", "sort"),
-    "engine radix, explicit tree": (dict(engine="radix",
-                                         dist_local_merge="tree"), "cpu",
-                                    U32, 1 << 20, 0, False, "bitonic",
-                                    "tree"),
+                                 1, "radix", "sort"),
 }
 
 
@@ -110,15 +79,13 @@ def test_local_engine_follows_sort_engine(case):
     """The engine of a rank's local sort and re-sort, a pure function of
     what the call shows: "auto" on a card is the radix engine where the
     single-card sort's rule gives it (keys of at most 32 bits, at most
-    one value word, fewer than 2^30 words), unless the tree is asked for
-    or the ring runs; the merge under "auto" is then the re-sort. CPU
-    tensors under "auto" keep the host engine."""
-    fields, device, dtype, n, nv, ring, want, merge = LOCAL_ENGINE[case]
-    cfg = sortx_torch.Config(**fields)
-    got = PORT._local_engine(cfg, device, dtype, n, nv, ring)
+    one value word, fewer than 2^30 words), and the merge is then the
+    re-sort. CPU tensors under "auto" keep the host engine."""
+    fields, device, dtype, n, nv, want, merge = LOCAL_ENGINE[case]
+    got = PORT._local_engine(sortx_torch.Config(**fields), device, dtype, n,
+                             nv)
     assert got == want
-    assert PORT._resolve_merge_mode(cfg, got, 4, torch.device(device)) == (
-        merge)
+    assert PORT._merge_mode(got, 4) == merge
 
 
 def _plans(dests, d: int):

@@ -1,6 +1,7 @@
 """The flagship slice end to end, the import boundary, and convert.py."""
 
 import ast
+import dataclasses
 import inspect
 import pathlib
 import subprocess
@@ -92,6 +93,13 @@ def test_config_from_sortx():
     assert config_from_sortx(sortx.Config(engine="host")).engine == "host"
     assert config_from_sortx(sortx.Config()).engine == "auto"
     assert config_from_sortx(sortx.Config(engine="hybrid")).engine == "hybrid"
+    # the reference's schedule fields have no counterpart: dist_sort runs
+    # one schedule
+    assert config_from_sortx(sortx.Config(
+        dist_exchange="ring", dist_local_merge="rank")) == config_from_sortx(
+            sortx.Config())
+    assert not [f.name for f in dataclasses.fields(sortx_torch.Config)
+                if f.name.startswith("dist_")]
 
 
 def test_config_rejects_bad_fields():

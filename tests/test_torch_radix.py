@@ -295,10 +295,10 @@ def test_other_ops_and_dist_keep_their_engine_on_a_card(engine, want):
     cfg = sortx_torch.Config(engine=engine)
     on_card = types.SimpleNamespace(device=torch.device("cuda"))
     assert resolve_engine(cfg, on_card) == want
-    local = ds._local_engine(cfg, "cuda", torch.uint32, 1 << 20, 0, False)
+    local = ds._local_engine(cfg, "cuda", torch.uint32, 1 << 20, 0)
     assert local == {"auto": "radix", "radix": "radix", "network": "bitonic",
                      "hybrid": "xla"}[engine]
-    assert ds._resolve_merge_mode(cfg, local, 4, on_card.device) == (
+    assert ds._merge_mode(local, 4) == (
         "tree" if local == "bitonic" else "sort")
 
 
