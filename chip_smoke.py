@@ -15,7 +15,10 @@ histogram (uniform, all-equal and two-valued words, every digit width,
 per tile and whole, with and without the prefix filter), both run
 movers, and the radix engine's K9 and every K10 pass (2^20, 2^27 and
 2^26 + 13, keys-only and with values, full and partial sort_bits,
-uniform, 16-valued and all-equal words);
+uniform, 16-valued and all-equal words), and the rows' radix engine's
+K11 and every K12 pass (the top-p sampler's 256 x 129,280 float32
+probabilities with positions, rows of one to 300 keys-only and with
+values, each order map);
 K1 and K2 also at the block sizes no plan reaches (the smallest the
 wrappers take, the ends of the register design's range, a buffer off
 the 16-byte grid). Then it drives each path through the public API at full size (n = 2^27
@@ -25,7 +28,10 @@ u32 keys, 512 MB per stream, or 2048 rows of 2^16):
              sort_kv on the network)
   hybrid     sort and sort_kv under Config(engine="hybrid"), and a skewed
              input that takes its overflow branch
-  rows       sort_rows and sort_kv_rows
+  rows       sort_rows and sort_kv_rows (the rows' radix engine, K11
+             and four K12 passes; the sampler's 256 x 129,280 float32
+             probabilities descending with indices too), then the same
+             calls under Config(engine="network") on the row network
   select     histogram, kth_value, median and top_k
   movers     apply_runs on two radix-style piece plans: a radix-16 pass
              (256 tiles x 16 digits) from its numpy plan, and an 8-bit
@@ -49,7 +55,8 @@ u32 keys, 512 MB per stream, or 2048 rows of 2^16):
              unstable with 32- and 64-bit values; scan; entry; argsort;
              lexsort; merge / merge_kv; sort_segments; scan_segments;
              kth_value with a rank tensor; median; top_k; unique;
-             histogram; sort_rows / sort_kv_rows) captured once into a
+             histogram; sort_rows / sort_kv_rows, also under
+             engine="network") captured once into a
              CUDA graph after an eager warm-up and an eager call under
              set_sync_debug_mode("error"), then replayed on random,
              nondecreasing, nonincreasing and all-equal inputs copied
@@ -121,6 +128,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -128,14 +136,17 @@ import subprocess
 import sys
 import time
 import types
+from pathlib import Path
 
 import numpy as np
 import torch
 
 import sortx_torch
+from portbench import spec
 from sortx_torch.ops import _build
 from sortx_torch.ops import bitonic as tb
 from sortx_torch.ops import radix as rx
+from sortx_torch.ops import radix_rows as rr
 from sortx_torch.ops import sort_hybrid as hy
 from sortx_torch.ops.radix_kernels import histogram_plain, tile_histogram
 from sortx_torch.ops.scan import scan_plain, tile_scan
@@ -171,9 +182,18 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     # the reference ran the network (its own algorithm, OCLRadixSort's)
     "radix_histogram": ("sortx_torch/csrc/radix.cu", "none"),
     "radix_onesweep": ("sortx_torch/csrc/radix.cu", "none"),
+    # K11 and K12 replace no Pallas kernel either: the rows' radix engine
+    # sorts long rows where the reference ran the network in rows mode
+    "radix_rows_histogram": ("sortx_torch/csrc/radix_rows.cu", "none"),
+    "radix_rows_onesweep": ("sortx_torch/csrc/radix_rows.cu", "none"),
 }
 NETWORK = ("bitonic_block", "bitonic_tail", "bitonic_global")
 RADIX = ("radix_histogram", "radix_onesweep")
+ROWS_RADIX = ("radix_rows_histogram", "radix_rows_onesweep")
+SAMPLER = (256, 129_280)    # the top-p sampler's rows: DeepSeek-V3's vocab
+# the plain reference of the benchmark's sampler cell
+TOPP_REF = spec.load_module(Path(__file__).resolve().parent / "portbench" /
+                            "reference" / "topp_rows.py")
 # The card's peaks the bounds divide by (H100 SXM, NVIDIA's data sheet):
 # device memory 3.35 TB/s; integer compare, min, max, add and select
 # run outside the tensor cores on 64 INT32 lanes per SM, one operation
@@ -184,6 +204,7 @@ INT32_OPS_PER_S = 67e12 / 4
 ROWS = (2048, 1 << 16)      # bench.py's sort_rows shape
 RAGGED_ROWS = (2048, 50_000)
 HYBRID = sortx_torch.Config(engine="hybrid")
+NET = sortx_torch.Config(engine="network")
 
 
 def check(ok: bool, what: str) -> None:
@@ -338,6 +359,7 @@ def kernel_checks(dev) -> dict:
     histogram_checks(rng, dev, err)
     mover_checks(dev, err)
     radix_checks(rng, dev, err)
+    radix_rows_checks(dev, err)
     return err
 
 
@@ -384,6 +406,69 @@ def radix_checks(rng, dev, err: dict) -> None:
             vals is None or torch.equal(vsrc, vals[order])),
             f"radix passes {what} == stable torch.sort of the low bits")
         del keys, vals, src, vsrc, order
+
+
+def sampler_probs(dev, seed: int) -> torch.Tensor:
+    """The top-p sampler cell's float32 probabilities, a row of the
+    vocabulary a sequence (the benchmark's plain reference makes them)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randint(-2**31, 2**31, (SAMPLER[0] * SAMPLER[1],),
+                      dtype=torch.int32, generator=gen, device=dev)
+    return TOPP_REF.probabilities(w, SAMPLER[1])
+
+
+def radix_rows_checks(dev, err: dict) -> None:
+    """K11 and each K12 pass against their plain versions: the sampler's
+    probabilities descending with positions, and tie-heavy rows (the low
+    20 bits cleared) of one to 300 keys-only and with values under each
+    order map; the last pass must equal a stable torch.sort of the mapped
+    words."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    for shape, kind, desc, pairs in ((SAMPLER, "f32", True, "positions"),
+                                     ((1, 1_000_003), "u32", False, "keys"),
+                                     ((300, 9000), "i32", True, "values"),
+                                     ((5, 6145), "f32", False, "positions")):
+        if shape == SAMPLER:
+            keys = sampler_probs(dev, SEED + 12).view(torch.int32)
+        else:
+            keys = cwords(gen, shape[0] * shape[1], dev).view(shape) \
+                & (-1 << 20)
+        R, L = shape
+        vals = (torch.arange(R * L, dtype=torch.int32, device=dev).view(R, L)
+                if pairs == "values" else None)
+        what = f"{R} x {L} {kind}{' descending' if desc else ''} {pairs}"
+        got = rr.radix_rows_histogram(keys, kind, desc)
+        want = rr.offsets_rows_plain(keys, kind, desc)
+        err["radix_rows_histogram"] = max(err["radix_rows_histogram"],
+                                          max_abs_err(got, want))
+        check(torch.equal(got, want), f"radix_rows_histogram {what} == plain")
+        withv = pairs != "keys"
+        region = rr._region(R, L, withv)
+        src, vsrc = keys, vals
+        for p in range(rr.PASSES):
+            reg = torch.zeros(region, dtype=torch.int32, device=dev)
+            kout = torch.empty_like(src)
+            vout = torch.empty_like(src) if withv else None
+            rr.radix_rows_onesweep(src, kout, want, p, kind, desc, region=reg,
+                                   values=vsrc, values_out=vout)
+            pk, pv = rr.onesweep_rows_plain(
+                src, p, want[:, p], kind, desc, vsrc,
+                positions=pairs == "positions" and p == 0)
+            torch.cuda.synchronize()
+            ok = torch.equal(kout, pk) and (not withv or torch.equal(vout, pv))
+            if not ok:
+                err["radix_rows_onesweep"] = max(err["radix_rows_onesweep"],
+                                                 max_abs_err(kout, pk))
+            check(ok, f"radix_rows_onesweep pass {p} {what} == plain")
+            src, vsrc = kout, vout
+            del pk, pv, reg
+        order = torch.sort(u64(rr.encode_plain(keys, kind, desc)), dim=1,
+                           stable=True).indices
+        check(torch.equal(src, keys.gather(1, order)) and (
+            pairs != "positions" or torch.equal(vsrc.long(), order)),
+            f"radix rows passes {what} == stable torch.sort of the mapped "
+            "words")
+        del keys, vals, src, vsrc, order, got, want
 
 
 def order_flag(value: int, dev) -> torch.Tensor:
@@ -769,31 +854,58 @@ def hybrid_path(dev) -> dict:
 def rows_path(dev) -> dict:
     """Phase 5: sort_rows (also with indices) and sort_kv_rows on
     2048 x 2^16 (and a ragged 2048 x 50000) against torch.sort(dim=1,
-    stable=True)."""
-    rng = np.random.RandomState(SEED + 5)
-    _build.launches.clear()
-    for B, L in (ROWS, RAGGED_ROWS):
-        keys = words(rng, B * L, dev).view(B, L)
-        keys[:, ::7] &= 0xFF          # ties, so stability shows
-        values = torch.arange(B * L, dtype=torch.int32, device=dev).view(B, L)
-        ref = torch.sort(u64(keys), dim=1, stable=True)
-        out = sortx_torch.sort_rows(keys.view(torch.uint32))
-        check(torch.equal(u64(out), ref.values),
-              f"sort_rows {B} x {L} == torch.sort(dim=1)")
-        out, idx = sortx_torch.sort_rows(keys.view(torch.uint32),
-                                         return_indices=True)
-        check(torch.equal(u64(out), ref.values)
-              and torch.equal(idx, ref.indices.to(torch.int32)),
-              f"sort_rows {B} x {L} with indices == torch.sort(dim=1, "
-              "stable=True)")
-        del idx
-        ks, vs = sortx_torch.sort_kv_rows(keys.view(torch.uint32), values)
-        check(torch.equal(u64(ks), ref.values)
-              and torch.equal(vs, values.gather(1, ref.indices)),
-              f"sort_kv_rows {B} x {L} == torch.sort(dim=1, stable=True) "
-              "+ gather")
-        del keys, values, ref, out, ks, vs
-    return read_launches("rows", NETWORK)
+    stable=True), and the top-p sampler's sort_rows of 256 x 129,280
+    float32 probabilities, descending with indices, against the plain
+    reference: under "auto" on the rows' radix engine (no bitonic kernel
+    launched), then again under engine="network" on the row network
+    (no radix rows kernel launched). Returns the "auto" calls' launch
+    counts."""
+    counts = {}
+    for engine, cfg, ran, not_ran in (
+            ("auto", None, ROWS_RADIX, NETWORK),
+            ("network", sortx_torch.Config(engine="network"), NETWORK,
+             ROWS_RADIX)):
+        rng = np.random.RandomState(SEED + 5)
+        _build.launches.clear()
+        probs = sampler_probs(dev, SEED + 5)
+        want_p, want_i = TOPP_REF.sort_probs(probs)
+        got_p, got_i = sortx_torch.sort_rows(probs, descending=True,
+                                             return_indices=True, config=cfg)
+        check(torch.equal(got_p.view(torch.int32), want_p.view(torch.int32))
+              and torch.equal(got_i, want_i),
+              f"sort_rows {SAMPLER[0]} x {SAMPLER[1]} float32 descending "
+              f"with indices, {engine} == the sampler cell's plain reference")
+        del probs, want_p, want_i, got_p, got_i
+        for B, L in (ROWS, RAGGED_ROWS):
+            keys = words(rng, B * L, dev).view(B, L)
+            keys[:, ::7] &= 0xFF          # ties, so stability shows
+            values = torch.arange(B * L, dtype=torch.int32,
+                                  device=dev).view(B, L)
+            ref = torch.sort(u64(keys), dim=1, stable=True)
+            out = sortx_torch.sort_rows(keys.view(torch.uint32), config=cfg)
+            check(torch.equal(u64(out), ref.values),
+                  f"sort_rows {B} x {L}, {engine} == torch.sort(dim=1)")
+            out, idx = sortx_torch.sort_rows(keys.view(torch.uint32),
+                                             return_indices=True, config=cfg)
+            check(torch.equal(u64(out), ref.values)
+                  and torch.equal(idx, ref.indices.to(torch.int32)),
+                  f"sort_rows {B} x {L} with indices, {engine} == "
+                  "torch.sort(dim=1, stable=True)")
+            del idx
+            ks, vs = sortx_torch.sort_kv_rows(keys.view(torch.uint32), values,
+                                              config=cfg)
+            check(torch.equal(u64(ks), ref.values)
+                  and torch.equal(vs, values.gather(1, ref.indices)),
+                  f"sort_kv_rows {B} x {L}, {engine} == torch.sort(dim=1, "
+                  "stable=True) + gather")
+            del keys, values, ref, out, ks, vs
+        got = read_launches(f"rows ({engine})", ran)
+        check(not any(got.get(k, 0) for k in not_ran),
+              f"the rows ({engine}) path launched none of "
+              f"{', '.join(not_ran)}")
+        if cfg is None:
+            counts = got
+    return counts
 
 
 def select_path(dev) -> dict:
@@ -1563,6 +1675,8 @@ def timings(dev, card: str, err: dict):
           f"{extra['reverse']['bound_by']}")
     del out
     radix_timings(card, keys, values, err, torch_sort, ms, extra)
+    del keys, values
+    radix_rows_timings(dev, card, err, ms, extra)
     return ms, extra
 
 
@@ -1631,6 +1745,82 @@ def radix_timings(card: str, keys, values, err: dict, torch_sort: float,
                       "engine", time_ms(lambda: sortx_torch.sort(u, config=cfg),
                                         reps=3), N)
     del tied
+
+
+def radix_rows_timings(dev, card: str, err: dict, ms: dict,
+                       extra: dict) -> None:
+    """K11 and K12 at the top-p sampler's shape (256 x 129,280 float32
+    probabilities, descending): K11, K12's first pass (positions made in
+    registers) and a later pass (a value word in and out), each over ROW
+    calls in a row beside its plain version and its bound by bytes; the
+    whole sort_rows with indices beside the row network's; and torch.sort
+    of the same rows with indices (the one PyTorch call that sorts them;
+    the port never calls it)."""
+    probs = sampler_probs(dev, SEED + 13)
+    keys = probs.view(torch.int32)
+    R, L = SAMPLER
+    n = R * L
+    scratch = torch.empty(rr.scratch_words(R, L, True), dtype=torch.int32,
+                          device=dev)
+    net = sortx_torch.Config(engine="network")
+    line = functools.partial(time_line, card)
+    line(f"sortx_torch.sort_rows f32 {R} x {L} descending with indices",
+         time_ms(lambda: sortx_torch.sort_rows(
+             probs, descending=True, return_indices=True)), n)
+    line(f"sortx_torch.sort_rows f32 {R} x {L} descending with indices, "
+         "row network", time_ms(lambda: sortx_torch.sort_rows(
+             probs, descending=True, return_indices=True, config=net)), n)
+    library = line(f"torch.sort(dim=1, descending=True, stable=True) f32 "
+                   f"{R} x {L}", time_ms(lambda: torch.sort(
+                       probs, dim=1, descending=True, stable=True)), n)
+    what = f"radix_rows_histogram {R} x {L} f32 descending"
+    ms["radix_rows_histogram"] = timed_kernel(
+        card, what, lambda: rr.radix_rows_histogram(keys, "f32", True,
+                                                    scratch),
+        lambda: rr.offsets_rows_plain(keys, "f32", True), err,
+        "radix_rows_histogram", calls=ROW)
+    # K11 reads each key once; the order map, then a shift, a mask and an
+    # add a digit
+    extra["radix_rows_histogram"] = dict(bound(4 * n, 3 * 5 * n),
+                                         library_ms=library)
+    offsets = rr.offsets_rows_plain(keys, "f32", True)
+    regions = torch.empty(ROW, rr._region(R, L, True), dtype=torch.int32,
+                          device=dev)
+    k1, v1 = rr.onesweep_rows_plain(keys, 0, offsets[:, 0], "f32", True,
+                                    positions=True)
+    out, vout = torch.empty_like(keys), torch.empty_like(keys)
+    turn = [0]
+
+    def zero():
+        regions.zero_()
+        turn[0] = 0
+
+    def one_pass(p, src, vals):
+        def run():
+            rr.radix_rows_onesweep(src, out, offsets, p, "f32", True,
+                                   region=regions[turn[0] % ROW],
+                                   values=vals, values_out=vout)
+            turn[0] += 1
+            return out, vout
+        return run
+
+    for p, src, vals, bytes_per_key in ((0, keys, None, 12), (1, k1, v1, 16)):
+        what = (f"radix_rows_onesweep {R} x {L} pass {p} "
+                f"{'positions made' if vals is None else 'with values'}")
+        k_p = timed_kernel(
+            card, what, one_pass(p, src, vals), lambda: rr.onesweep_rows_plain(
+                src, p, offsets[:, p], "f32", True, vals,
+                positions=vals is None), err, "radix_rows_onesweep", zero,
+            calls=ROW)
+        # a pass reads each key (and value) once and writes each key and
+        # value once; its operations (a match, a shift, a few adds a word)
+        # are below that
+        b = bound(bytes_per_key * n, 0)
+        print(f"bound {what}: {b['bound_ms']!r} ms by {b['bound_by']}")
+        if vals is not None:
+            ms["radix_rows_onesweep"] = k_p
+            extra["radix_rows_onesweep"] = dict(b, library_ms=library)
+    del probs, keys, scratch, regions, out, vout, k1, v1, offsets
 
 
 # The blocks (log2) K1 and K2 had at 1 and 4 streams before they kept
@@ -2494,6 +2684,10 @@ def other_graph_ops(dev, n: int = GRAPH_N) -> dict:
         "sort_rows": (row_keys, lambda st: sortx_torch.sort_rows(st["k"])),
         "sort_kv_rows": (row_keys, lambda st: sortx_torch.sort_kv_rows(
             st["k"], st["v"])),
+        "sort_rows network": (row_keys, lambda st: sortx_torch.sort_rows(
+            st["k"], config=NET)),
+        "sort_kv_rows network": (row_keys, lambda st: sortx_torch.sort_kv_rows(
+            st["k"], st["v"], config=NET)),
     })
     return ops
 
@@ -3238,7 +3432,8 @@ def main() -> None:
     ms, extra = timings(dev, card, err)   # before the other paths allocate
     took("flagship timings")
     counts["run_mover"] = hybrid_path(dev)["run_mover"]
-    rows_path(dev)
+    counts.update({k: c for k, c in rows_path(dev).items()
+                   if k in ROWS_RADIX})
     counts["histogram"] = select_path(dev)["histogram"]
     counts["piece_mover"] = movers_path(dev)["piece_mover"]
     took("hybrid, rows, select and movers paths")

@@ -27,16 +27,20 @@ Layer map:
                                    ops/segmented.py, ops/segscan.py
   engines                          ops/radix.py (the main path: "auto"
                                    on a card for stable sorts of <= 32-bit
-                                   keys), ops/sort_network.py,
+                                   keys), ops/radix_rows.py (rows longer
+                                   than 2^11), ops/sort_network.py,
                                    ops/sort_hybrid.py, ops/sort_host.py
   bitonic network pass plans       ops/bitonic.py
-  kernel wrappers                  ops/radix.py, ops/bitonic.py,
-                                   ops/scan.py, ops/radix_kernels.py,
-                                   ops/shuffle.py
+  kernel wrappers                  ops/radix.py, ops/radix_rows.py,
+                                   ops/bitonic.py, ops/scan.py,
+                                   ops/radix_kernels.py, ops/shuffle.py
   kernels                          csrc/radix.cu (K9, K10: the main
-                                   path), csrc/bitonic.cu (K1-K3),
-                                   csrc/scan.cu (K4), csrc/histogram.cu
-                                   (K5), csrc/shuffle.cu (K6, K7)
+                                   path), csrc/radix_rows.cu (K11, K12:
+                                   the long rows; both include
+                                   csrc/onesweep.cuh), csrc/bitonic.cu
+                                   (K1-K3), csrc/scan.cu (K4),
+                                   csrc/histogram.cu (K5), csrc/shuffle.cu
+                                   (K6, K7)
   dist_sort / dist_sort_kv / *_padded / dist_scan / make_sort_mesh
                                    parallel/ (one process per rank on
                                    torch.distributed; one schedule: the

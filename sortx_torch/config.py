@@ -41,10 +41,13 @@ class Config:
       ops/sort_hybrid.py); "host" runs the stable ``torch.sort`` engine;
       "radix" runs the one-sweep LSD radix sort (ops/radix.py: K9, K10;
       their plain versions for CPU tensors) for ``sort`` and ``sort_kv``
-      of 32-bit and narrower keys with at most one value word, and the
-      network for everything else; "auto" picks the radix engine for a
-      stable ``sort`` / ``sort_kv`` it serves on a CUDA tensor
-      (``ops/sort.py:sort_engine``), otherwise the network for CUDA
+      of 32-bit and narrower keys with at most one value word, its
+      segmented form (ops/radix_rows.py: K11, K12) for ``sort_rows`` /
+      ``sort_kv_rows`` of rows longer than 2^11 with at most one value
+      word, and the network for everything else; "auto" picks the radix
+      engines for a stable ``sort`` / ``sort_kv`` and the row sorts they
+      serve on a CUDA tensor (``ops/sort.py:sort_engine``,
+      ``ops/rows.py:rows_engine``), otherwise the network for CUDA
       tensors and the host engine for CPU tensors.
     scan_tile_elems: the scan's tile in ``sortx`` (a positive multiple
       of 1024), carried so that a converted config keeps it. The scan's
@@ -92,7 +95,8 @@ class Config:
 
 def resolve_engine(cfg: Config, t) -> str:
     """"network", "hybrid" or "host" for tensor ``t`` under ``cfg``: the
-    engine of every op but the radix path of ``sort`` / ``sort_kv``."""
+    engine of every op but the radix paths of ``sort`` / ``sort_kv`` and
+    of the row sorts."""
     return device_engine(cfg, t.device.type)
 
 

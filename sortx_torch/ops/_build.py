@@ -1,14 +1,16 @@
 """Builds the hand-written CUDA kernels at first use and binds them.
 
-The kernels are compiled from ``sortx_torch/csrc/*.cu`` and nothing
-else, by ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started
-together (``-split-compile 0``: each also compiles its kernels on all
-cores, which halves the wait for ``bitonic.cu``), then linked into one
-shared library with a plain C interface under :data:`BUILD_DIR` (the
+The kernels are compiled from ``sortx_torch/csrc/*.cu`` (which may
+include the headers ``csrc/*.cuh``) and nothing else, by ``nvcc`` for
+``sm_90a``, one ``nvcc`` per source, all started together
+(``-split-compile 0``: each also compiles its kernels on all cores,
+which halves the wait for ``bitonic.cu``), then linked into one shared
+library with a plain C interface under :data:`BUILD_DIR` (the
 checkout's ``build/sortx_torch/``; ``runtime.cache.enable_cache`` moves
-it). The library's name carries a hash of the sources and flags, so an
-unchanged tree loads the library it built before. It is loaded with
-``ctypes``: every pointer and the stream pass as ``c_void_p``.
+it). The library's name carries a hash of the sources, headers and
+flags, so an unchanged tree loads the library it built before. It is
+loaded with ``ctypes``: every pointer and the stream pass as
+``c_void_p``.
 
 A missing ``nvcc`` or a failed build raises; nothing falls back. Each C
 entry launches on the stream it is given (PyTorch's current stream),
@@ -43,6 +45,7 @@ __all__ = ["library", "launch", "launches", "on_card", "check_device",
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
+_HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
 BUILD_DIR = _PKG.parent / "build" / "sortx_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-split-compile", "0", "-Xcompiler", "-fPIC")
@@ -77,6 +80,12 @@ _ENTRIES = {
     # (keys_in, keys_out, values_in, values_out, n, shift, digit_bits,
     #  offsets, region, region_words, stream)
     "sortx_radix_onesweep": (_P, _P, _P, _P, _L, _I, _I, _P, _P, _L, _P),
+    # (keys, rows, len, kind, descending, scratch, scratch_words, stream)
+    "sortx_radix_rows_histogram": (_P, _L, _L, _I, _I, _P, _L, _P),
+    # (keys_in, keys_out, values_in, values_out, rows, len, pass, kind,
+    #  descending, offsets, region, region_words, stream)
+    "sortx_radix_rows_onesweep": (_P, _P, _P, _P, _L, _L, _I, _I, _I, _P,
+                                  _P, _L, _P),
 }
 
 
@@ -95,7 +104,7 @@ def nvcc_path() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + _HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -18,9 +18,10 @@ A 64-bit value rides as two words, (hi, lo), where a KV set has one
 value word: one more stream, and under unstable KV at ragged n one more
 key, (key, hi, lo).
 
-The row sorts (``sort_rows``, the hybrid engine's phases) run the
-network in rows mode over (key), (key, pos) or (key, pos, payloads...)
-rows: :func:`network_rows`, the span ``engine.rows``.
+The row sorts on the network engine (``sort_rows`` of rows up to 2^11
+under "auto" on a card, or any under "network"; the hybrid engine's
+phases) run the network in rows mode over (key), (key, pos) or (key,
+pos, payloads...) rows: :func:`network_rows`, the span ``engine.rows``.
 
 The network runs at every n >= 2. Ordered inputs take the reference's
 short cuts on the device (``sortx/ops/sort_pallas.py:343-350, 442-445``):

@@ -32,10 +32,15 @@ kernels:
   - ``engine.network``, ``engine.radix``: the 1-D engines
     (``ops/sort_network.py``, ``ops/radix.py``);
   - ``engine.rows``: the rows engine of ``sort_rows`` / ``sort_kv_rows``
-    and the hybrid's phases (``sort_network.network_rows``: staging into
-    the padded buffer, the row network, unstaging; or
+    and the hybrid's phases (``radix_rows.radix_rows``: the scratch and
+    the buffers of K11 and four K12 passes on the caller's words;
+    ``sort_network.network_rows``: staging
+    into the padded buffer, the row network, unstaging; or
     ``sort_host.host_rows``);
   - ``driver.bitonic``: the pass plan and its loop (``ops/bitonic.py``);
+    ``driver.radix``: the radix engine's scratch and pass loop
+    (``ops/radix.py``); ``driver.radix_rows``: the rows' radix engine's
+    K11 and pass loop (``ops/radix_rows.py``);
   - ``launch.<kernel>``: each kernel launch (``ops/_build.py:launch``);
   - ``dist.<step>``: each step of the distributed sort
     (:func:`profiled_step`), whose times on the card are kept as a

@@ -10,8 +10,9 @@ the CPU:
 
 - every op of the capture list runs under ``FakeTensorMode`` (which
   raises on a host read of data and on a data-dependent shape) with
-  ``Config(engine="network")``, and ``sort`` / ``sort_kv`` also with
-  ``Config(engine="radix")``, and makes no tensor from host data
+  ``Config(engine="network")``, and ``sort`` / ``sort_kv`` and rows
+  longer than 2^11 also with ``Config(engine="radix")``, and makes no
+  tensor from host data
   (on the card that is an upload, which syncs and cannot be captured);
 - each op the reference tests under ``jax.jit`` equals
   ``jax.jit(sortx.<op>)`` bit for bit on the same numpy input;
@@ -82,7 +83,9 @@ def _inputs(seed: int = 0) -> dict:
         offsets=np.array([0, 0, 17, 900, 900, 2400, N], np.int64),
         rank=np.array(1234, np.int64),
         rows=rng.randint(0, 2**32, (6, 500), dtype=np.uint32),
-        rvals=rng.randint(0, 2**31, (6, 500)).astype(np.int32))
+        rvals=rng.randint(0, 2**31, (6, 500)).astype(np.int32),
+        long_rows=np.round(rng.randn(2, 2100) * 8).astype(np.float32),
+        long_rvals=rng.randint(-128, 128, (2, 2100)).astype(np.int8))
 
 
 def _kv(t, **kw):
@@ -153,6 +156,10 @@ OPS = {
         t["rows"], descending=True, return_indices=True, config=NET),
     "sort_kv_rows": lambda t: sortx_torch.sort_kv_rows(
         t["rows"], t["rvals"], config=NET),
+    "sort_rows radix with indices": lambda t: sortx_torch.sort_rows(
+        t["long_rows"], descending=True, return_indices=True, config=RADIX),
+    "sort_kv_rows radix": lambda t: sortx_torch.sort_kv_rows(
+        t["long_rows"], t["long_rvals"], config=RADIX),
 }
 
 

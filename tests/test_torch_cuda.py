@@ -14,9 +14,10 @@ import pytest
 import torch
 
 import sortx_torch
-from portbench import spec
+from portbench import spec, tracing
 from sortx_torch.ops import bitonic as tb
 from sortx_torch.ops import radix as rx
+from sortx_torch.ops import radix_rows as rr
 from sortx_torch.ops import sort_hybrid
 from sortx_torch.ops._build import launches
 from sortx_torch.ops.radix_kernels import histogram_plain, tile_histogram
@@ -31,6 +32,7 @@ REF = spec.load_module(Path(__file__).resolve().parents[1] / "portbench" /
 probabilities, sort_probs = REF.probabilities, REF.sort_probs
 
 pytestmark = pytest.mark.cuda
+NETWORK = sortx_torch.Config(engine="network")
 
 STREAM_SETS = sorted(tb.NARROW_SETS)
 # the full-network-only sets of the 64-bit, argsort and lexsort paths
@@ -183,8 +185,9 @@ def test_sort_rows_indices_match_host(dev, L):
 def test_topp_rows_at_the_vocabulary_width(dev):
     """The top-p sampler's row sort, 256 x 129,280 float32 probabilities
     descending with their indices, against the plain reference
-    (``portbench/reference/topp_rows.py``) bit for bit, in the 9 launches
-    of the row network at two streams (K1, 4 x K3, 4 x K2)."""
+    (``portbench/reference/topp_rows.py``) bit for bit, in the launches of
+    the rows' radix engine (K11 and 4 x K12; before it, the row network's
+    9), and against the row network itself."""
     gen = torch.Generator(device=dev).manual_seed(17)
     words = torch.randint(-2**31, 2**31, (256 * 129_280,),
                           dtype=torch.int32, generator=gen, device=dev)
@@ -195,10 +198,14 @@ def test_topp_rows_at_the_vocabulary_width(dev):
     got_p, got_i = sortx_torch.sort_rows(probs, descending=True,
                                          return_indices=True)
     torch.cuda.synchronize()
-    assert dict(launches) == {"bitonic_block": 1, "bitonic_global": 4,
-                              "bitonic_tail": 4}
+    assert dict(launches) == {"radix_rows_histogram": 1,
+                              "radix_rows_onesweep": 4}
     assert torch.equal(got_p.view(torch.int32), want_p.view(torch.int32))
     assert torch.equal(got_i, want_i)
+    net_p, net_i = sortx_torch.sort_rows(probs, descending=True,
+                                         return_indices=True, config=NETWORK)
+    assert torch.equal(got_p.view(torch.int32), net_p.view(torch.int32))
+    assert torch.equal(got_i, net_i)
 
 
 # --- K5, the tile histogram ----------------------------------------------
@@ -1395,7 +1402,6 @@ RADIX_CALLS = {   # name -> op(keys, values, config)
     "sort_kv stable sort_bits=9": lambda k, v, c: sortx_torch.sort_kv(
         k.view(torch.uint32), v, 9, config=c),
 }
-NETWORK = sortx_torch.Config(engine="network")
 
 
 @pytest.mark.parametrize("kind", ["uniform", "entropy 0.201"])
@@ -1533,3 +1539,189 @@ def test_four_rank_dist_sort_engines(dev, tmp_path, name):
                 assert radix > 0 and network == 0, res
             else:
                 assert network > 0 and radix == 0, res
+
+
+# --- the rows' radix engine: K11 and K12 -----------------------------------
+
+def _row_words(kind, shape, dev, seed):
+    """[R, L] words on the card: tie-heavy random words (the low 20 bits
+    cleared, so floats hold +-0.0, infinities and NaNs too), or the
+    sampler's probabilities."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "probabilities":
+        words = torch.randint(-2**31, 2**31, (shape[0] * shape[1],),
+                              dtype=torch.int32, generator=g, device=dev)
+        return probabilities(words, shape[1]).view(torch.int32)
+    w = torch.randint(-2**31, 2**31, shape, generator=g, device=dev,
+                      dtype=torch.int64).to(torch.int32)
+    return w & (-1 << 20)
+
+
+@pytest.mark.parametrize("kind, descending", [("u32", False), ("i32", True),
+                                              ("f32", True), ("f32", False)])
+@pytest.mark.parametrize("shape", [(1, 100_003), (5, 20_000), (300, 9000),
+                                   (3, 6145)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("pairs", ["keys", "values", "positions"])
+def test_radix_rows_kernels_match_plain(dev, shape, kind, descending, pairs):
+    """K11, then each K12 pass, against their plain versions on the same
+    input (keys alone, a value word, or positions made by the first
+    pass); the last pass against a stable sort by the order map."""
+    keys = _row_words("random", shape, dev, seed=sum(shape))
+    R, L = shape
+    values = (torch.arange(R * L, dtype=torch.int32, device=dev).view(R, L)
+              if pairs == "values" else None)
+    withv = pairs != "keys"
+    scratch = torch.empty(rr.scratch_words(R, L, withv), dtype=torch.int32,
+                          device=dev)
+    before = launches["radix_rows_histogram"], launches["radix_rows_onesweep"]
+    offsets = rr.radix_rows_histogram(keys, kind, descending, scratch)
+    want = rr.offsets_rows_plain(keys, kind, descending)
+    torch.cuda.synchronize()
+    assert torch.equal(offsets, want)
+    region = rr._region(R, L, withv)
+    src, vsrc = keys, values
+    for p in range(rr.PASSES):
+        lo = rr._header(R) + p * region
+        out = torch.empty_like(src)
+        vout = torch.empty_like(src) if withv else None
+        rr.radix_rows_onesweep(src, out, offsets, p, kind, descending,
+                               region=scratch[lo:lo + region], values=vsrc,
+                               values_out=vout)
+        pk, pv = rr.onesweep_rows_plain(src, p, want[:, p], kind, descending,
+                                        vsrc, positions=pairs == "positions"
+                                        and p == 0)
+        torch.cuda.synchronize()
+        assert torch.equal(out, pk), p
+        assert not withv or torch.equal(vout, pv), p
+        src, vsrc = out, vout
+    assert (launches["radix_rows_histogram"],
+            launches["radix_rows_onesweep"]) == (before[0] + 1,
+                                                 before[1] + rr.PASSES)
+    mapped = rr.encode_plain(keys, kind, descending).to(torch.int64)
+    order = torch.sort(mapped & 0xFFFFFFFF, dim=1, stable=True).indices
+    assert torch.equal(src, keys.gather(1, order))
+    if pairs == "positions":
+        assert torch.equal(vsrc.long(), order)
+
+
+ROWS_CALLS = {   # name -> (op(keys, values, config), keys' dtype, shape)
+    "sampler sort_rows with indices": (
+        lambda k, v, c: sortx_torch.sort_rows(
+            k, descending=True, return_indices=True, config=c),
+        torch.float32, (256, 129_280)),
+    "sort_rows f32 keys alone": (
+        lambda k, v, c: sortx_torch.sort_rows(k, config=c),
+        torch.float32, (64, 40_000)),
+    "sort_rows i32 descending with indices": (
+        lambda k, v, c: sortx_torch.sort_rows(
+            k, descending=True, return_indices=True, config=c),
+        torch.int32, (33, 10_001)),
+    "sort_rows u32 with indices, one row": (
+        lambda k, v, c: sortx_torch.sort_rows(
+            k, return_indices=True, config=c),
+        torch.uint32, (1, 1_000_003)),
+    "sort_kv_rows 32-bit values": (
+        lambda k, v, c: sortx_torch.sort_kv_rows(k, v, config=c),
+        torch.float32, (256, 129_280)),
+    "sort_kv_rows 8-bit values descending": (
+        lambda k, v, c: sortx_torch.sort_kv_rows(
+            k, v.to(torch.int8), descending=True, config=c),
+        torch.int32, (40, 5000)),
+    "top_k with indices": (
+        lambda k, v, c: sortx_torch.top_k(
+            k.reshape(-1), 200, return_indices=True, config=c),
+        torch.float32, (256, 129_280)),
+}
+
+
+def _torch_sort_rows(keys, descending):
+    """The stable order of each row by ``sortx``'s key map, from a stable
+    ``torch.sort`` of the mapped words."""
+    from sortx_torch.ops.sort import _to_radix_u32
+    w = _to_radix_u32(keys)[0].to(torch.int64) & 0xFFFFFFFF
+    return torch.sort(0xFFFFFFFF - w if descending else w, dim=1,
+                      stable=True).indices
+
+
+@pytest.mark.parametrize("call", list(ROWS_CALLS))
+def test_radix_rows_equal_the_network_and_torch_sort(dev, call):
+    """Under "auto" the long row sorts run K11 and four K12 passes and no
+    network pass, and give the row network's bits and a stable
+    ``torch.sort``'s order (``top_k``'s tournament rows are 1024 long and
+    keep the network: its answer is held all the same)."""
+    op, dtype, shape = ROWS_CALLS[call]
+    keys = _row_words("probabilities" if dtype == torch.float32 else
+                      "random", shape, dev, seed=len(call)).view(dtype)
+    vals = torch.arange(shape[0] * shape[1], dtype=torch.int32,
+                        device=dev).view(shape).flip(1).contiguous()
+    want = op(keys, vals, NETWORK)
+    torch.cuda.synchronize()
+    launches.clear()
+    got = op(keys, vals, None)
+    torch.cuda.synchronize()
+    assert _same_tree(got, want)
+    net = ("bitonic_block", "bitonic_tail", "bitonic_global")
+    if call.startswith("top_k"):
+        assert not launches["radix_rows_onesweep"]
+        return
+    assert dict(launches) == {"radix_rows_histogram": 1,
+                              "radix_rows_onesweep": 4}
+    assert not any(launches[k] for k in net)
+    descending = "descending" in call or call.startswith("sampler")
+    order = _torch_sort_rows(keys, descending)
+    out = got[0] if isinstance(got, tuple) else got
+    assert _same_tree(out, keys.gather(1, order) if dtype != torch.uint32
+                      else keys.view(torch.int32).gather(1, order).view(dtype))
+    if "indices" in call:
+        assert torch.equal(got[1].long(), order)
+
+
+def test_the_sampler_call_is_one_memset_k11_and_four_k12(dev):
+    """The traced call holds six device operations and nothing else: the
+    scratch's memset, K11 and four K12 passes (no pad, fill, staging or
+    elementwise kernel)."""
+    probs = _row_words("probabilities", (256, 129_280), dev,
+                       seed=3).view(torch.float32)
+
+    def call():
+        sortx_torch.sort_rows(probs, descending=True, return_indices=True)
+        torch.cuda.synchronize()
+    sl = tracing.record(call, calls=1, warm=1)
+    names = sorted(tracing.kernel_name(n) for *_, n in sl.device)
+    assert [n for n in names if n.startswith("Memset")] == names[:1]
+    assert names[1:] == ["radix_rows_histogram_kernel"] + \
+        ["radix_rows_onesweep_kernel"] * 4
+
+
+def test_radix_rows_capture_and_replay(dev):
+    """sort_rows with indices captured once (one memset, K11, four K12)
+    and replayed on new probabilities, tied rows and all-equal rows: each
+    replay equals the row network's eager call."""
+    shape = (64, 20_000)
+    static = {"k": _row_words("probabilities", shape, dev,
+                              seed=1).view(torch.float32)}
+
+    def run(st, cfg=None):
+        return sortx_torch.sort_rows(st["k"], descending=True,
+                                     return_indices=True, config=cfg)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run(static)
+    torch.cuda.current_stream().wait_stream(side)
+    launches.clear()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run(static)
+    assert dict(launches) == {"radix_rows_histogram": 1,
+                              "radix_rows_onesweep": 4}
+    new = {"probabilities": static["k"].flip(1) * 0.5,
+           "tied": _row_words("random", shape, dev, seed=2).view(
+               torch.float32),
+           "all equal": torch.full(shape, 0.25, device=dev)}
+    for kind, k in new.items():
+        static["k"].copy_(k)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_tree(out, run(static, NETWORK)), kind

@@ -24,6 +24,8 @@ import sortx_torch
 from sortx_torch.config import resolve_engine
 from sortx_torch.convert import to_numpy, to_torch
 from sortx_torch.ops import radix as rx
+from sortx_torch.ops import radix_rows as rr
+from sortx_torch.ops import rows as rows_mod
 from sortx_torch.ops.sort import sort_engine
 
 ds = importlib.import_module("sortx_torch.parallel.dist_sort")
@@ -257,6 +259,7 @@ DISPATCH = [  # (engine, device, key dtype, n, stable, value words) -> engine
     ("auto", "cuda", U32, BIG, True, 1, "radix"),
     ("auto", "cuda", torch.float16, 2, True, 1, "radix"),
     ("auto", "cuda", U32, (1 << 30) - 1, True, 1, "radix"),
+    ("auto", "cuda", torch.float32, 256 * 129_280, True, 1, "radix"),
     ("auto", "cuda", U32, 1 << 30, True, 0, "network"),
     ("auto", "cuda", U32, BIG, False, 1, "network"),
     ("auto", "cuda", U32, BIG, True, 2, "network"),
@@ -288,7 +291,8 @@ def test_sort_engine_dispatch(engine, device, dtype, n, stable, words, want):
                                           ("network", "network"),
                                           ("hybrid", "hybrid")])
 def test_other_ops_and_dist_keep_their_engine_on_a_card(engine, want):
-    """Every op but sort / sort_kv resolves "radix" to the network;
+    """Every op but sort / sort_kv and the long row sorts (their rule
+    is ``test_rows_engine_rule``'s) resolves "radix" to the network;
     dist_sort's local sorts of u32 words follow sort / sort_kv: the radix
     engine under "auto" and "radix", with the re-sort as the merge; the
     network (the merge tree) under "network"."""
@@ -302,11 +306,101 @@ def test_other_ops_and_dist_keep_their_engine_on_a_card(engine, want):
         "tree" if local == "bitonic" else "sort")
 
 
-@pytest.mark.parametrize("case", ["n", "sort_bits", "scratch", "tile"])
+# --- the rows' engine rule (ops/rows.py:rows_engine) -----------------------
+
+SAMPLER = (256, 129_280)
+ROWS_DISPATCH = {  # id -> (engine, device, R, L, value words, indices, want)
+    "sampler": ("auto", "cuda", *SAMPLER, 0, True, "radix"),
+    "sampler keys alone": ("auto", "cuda", *SAMPLER, 0, False, "radix"),
+    "sampler 32-bit values": ("auto", "cuda", *SAMPLER, 1, False, "radix"),
+    "2^11 with indices": ("auto", "cuda", 256, 1 << 11, 0, True, "network"),
+    "2^11 + 1 with indices": ("auto", "cuda", 256, (1 << 11) + 1, 0, True,
+                              "radix"),
+    "2^11 keys alone": ("auto", "cuda", 256, 1 << 11, 0, False, "network"),
+    "2^11 + 1 keys alone": ("auto", "cuda", 256, (1 << 11) + 1, 0, False,
+                            "radix"),
+    "2^11 32-bit values": ("auto", "cuda", 256, 1 << 11, 1, False,
+                           "network"),
+    "2^13 with indices": ("auto", "cuda", 256, 1 << 13, 0, True, "radix"),
+    "64-bit values": ("auto", "cuda", *SAMPLER, 2, False, "network"),
+    "R L = 2^30": ("auto", "cuda", 1 << 14, 1 << 16, 0, True, "network"),
+    "network": ("network", "cuda", *SAMPLER, 0, True, "network"),
+    "radix on the CPU": ("radix", "cpu", *SAMPLER, 0, True, "radix"),
+    "radix, short rows": ("radix", "cuda", 256, 1 << 11, 0, True, "network"),
+    "auto on the CPU": ("auto", "cpu", *SAMPLER, 0, True, "host"),
+    "hybrid": ("hybrid", "cuda", *SAMPLER, 0, True, "hybrid"),
+    "host": ("host", "cuda", *SAMPLER, 0, True, "host"),
+}
+
+
+@pytest.mark.parametrize("case", list(ROWS_DISPATCH))
+def test_rows_engine_rule(case):
+    """The rows' radix engine where it serves and is asked for: rows
+    longer than 2^11 words, at most one value word, R L < 2^30, whatever
+    the stream count; the 1-D sorts' rule is sort_engine's, which the
+    rows do not change."""
+    engine, device, R, L, words, indices, want = ROWS_DISPATCH[case]
+    cfg = sortx_torch.Config(engine=engine)
+    assert rows_mod.rows_engine(cfg, device, R, L, value_words=words,
+                                positions=indices) == want
+
+
+def test_one_rows_pass_is_stable_across_a_rows_tiles(rng):
+    """A single plain K12 pass on the second digit (4 bits of it used)
+    over rows of three tiles: each row's words of each digit keep their
+    input order, the positions made by the pass, and every row moves
+    inside itself."""
+    R, L = 3, 2 * 6144 + 517
+    k = torch.from_numpy(rng.randint(0, 16, (R, L)).astype(np.int32) << 8)
+    offsets = rr.offsets_rows_plain(k, "u32", False)
+    out, pos = rr.onesweep_rows_plain(k, 1, offsets[:, 1], "u32", False,
+                                      positions=True)
+    order = torch.sort(k >> 8, dim=1, stable=True).indices
+    assert torch.equal(pos.long(), order)
+    assert torch.equal(out, k.gather(1, order))
+
+
+@pytest.mark.parametrize("kind", sorted(rr.KINDS))
+@pytest.mark.parametrize("descending", [False, True])
+def test_the_rows_order_map_is_the_sorts(rng, kind, descending):
+    """K11 / K12's order map on the caller's words is ``_to_radix_u32``'s
+    (complemented under descending), and the last pass's inverse undoes
+    it."""
+    from sortx_torch.ops.sort import _to_radix_u32
+    w = torch.from_numpy(rng.randint(-2**31, 2**31, 4000, dtype=np.int64)
+                         .astype(np.int32))
+    w[:8] = torch.tensor([0, -1, 1, -2**31, 2**31 - 1, 0x7FC00001,
+                          -0x7FFFFFFF, 0x00800000], dtype=torch.int32)
+    keys = w.view({"u32": torch.uint32, "i32": torch.int32,
+                   "f32": torch.float32}[kind])
+    want = _to_radix_u32(keys)[0]
+    got = rr.encode_plain(w, kind, descending)
+    assert torch.equal(got, ~want if descending else want)
+    assert torch.equal(rr.decode_plain(got, kind, descending), w)
+
+
+@pytest.mark.parametrize("case", ["n", "sort_bits", "scratch", "tile",
+                                  "rows 1-D", "rows kind", "rows pass",
+                                  "rows positions past pass 0",
+                                  "rows offsets"])
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(case):
     k = torch.zeros(100, dtype=torch.int32)
+    rows = k.view(4, 25)
+    off = torch.zeros(4, 4, 256, dtype=torch.int32)
     with pytest.raises(ValueError):
-        if case == "n":
+        if case == "rows 1-D":
+            rr.radix_rows_histogram(k, "u32", False)
+        elif case == "rows kind":
+            rr.radix_rows_histogram(rows, "f16", False)
+        elif case == "rows pass":
+            rr.radix_rows_onesweep(rows, rows.clone(), off, 4, "u32", False)
+        elif case == "rows positions past pass 0":
+            rr.radix_rows_onesweep(rows, rows.clone(), off, 1, "u32", False,
+                                   values_out=rows.clone())
+        elif case == "rows offsets":
+            rr.radix_rows_onesweep(rows, rows.clone(), off[:, :3].clone(), 0,
+                                   "u32", False)
+        elif case == "n":
             rx.radix_histogram(k[:0], 32)
         elif case == "sort_bits":
             rx.radix_histogram(k, 33)

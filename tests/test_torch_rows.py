@@ -20,6 +20,7 @@ import sortx_torch
 from sortx.ops.bitonic import bitonic_sort_streams as jax_sort_streams
 from sortx_torch.convert import to_numpy, to_torch
 from sortx_torch.ops import bitonic as tb
+from sortx_torch.ops import rows as rows_mod
 
 HOST = sortx.Config(engine="host")
 ENGINES = ["host", "network"]
@@ -224,3 +225,108 @@ def test_mismatched_values_raise():
     with pytest.raises(ValueError):
         sortx_torch.sort_kv_rows(to_torch(np.zeros((2, 4), np.uint32)),
                                  to_torch(np.zeros((2, 5), np.uint32)))
+
+
+# --- the rows' radix engine (ops/radix_rows.py), plain versions ------------
+
+RADIX = sortx_torch.Config(engine="radix")
+# K12's tiles: 4096 words keys alone, 6144 with values or indices
+KEYS_TILE, PAIR_TILE = 4096, 6144
+
+
+def _radix_keys(rng, dtype, shape):
+    """Tie-heavy keys with the dtype's edge words: for floats +-0.0,
+    +-inf and NaNs of both signs."""
+    if dtype in (np.uint16, np.int16):
+        info = np.iinfo(dtype)
+        k = (rng.randint(0, 60, size=shape) * 997 + info.min).astype(dtype)
+        k.reshape(-1)[rng.randint(0, k.size, 9)] = info.max
+        return k
+    k = _keys(rng, np.float32 if dtype == np.float16 else dtype, shape)
+    if dtype == np.float32:
+        k.reshape(-1)[rng.randint(0, k.size, 20)] = 0.0
+        k.view(np.uint32).reshape(-1)[rng.randint(0, k.size, 9)] = 0xFFC00000
+    return k.astype(dtype)
+
+
+def _stable_order(k, descending):
+    """Each row's stable order by ``sortx``'s key map (a total order:
+    -0.0 below +0.0, NaNs at the ends by sign), from a stable
+    ``torch.sort`` of the mapped words."""
+    from sortx_torch.ops.sort import _to_radix_u32
+    from sortx_torch.utils.words import as_u64
+    w = as_u64(_to_radix_u32(to_torch(k))[0])
+    return torch.sort(0xFFFFFFFF - w if descending else w, dim=1,
+                      stable=True).indices
+
+
+ROW_SHAPES = {   # id -> shape: L against K12's tiles
+    "below_the_tile": (3, 3000),
+    "the_keys_tile": (2, KEYS_TILE),
+    "the_pair_tile": (2, PAIR_TILE),
+    "one_past_the_pair_tile": (2, PAIR_TILE + 1),
+    "one_past_the_keys_tile": (1, KEYS_TILE + 1),
+    "three_tiles_one_row": (1, 2 * PAIR_TILE + 777),
+}
+
+
+def _check_radix_rows(k, descending, indices):
+    R, L = k.shape
+    assert rows_mod.rows_engine(RADIX, "cpu", R, L, positions=indices) == "radix"
+    order = _stable_order(k, descending)
+    pos = np.tile(np.arange(L, dtype=np.int32), (R, 1))
+    want_k, want_i = sortx.sort_kv_rows(jnp.asarray(k), jnp.asarray(pos),
+                                        descending=descending, config=HOST)
+    got = sortx_torch.sort_rows(to_torch(k), descending=descending,
+                                return_indices=indices, config=RADIX)
+    got_k, got_i = got if indices else (got, None)
+    _same(got_k, want_k)
+    _same(got_k, np.take_along_axis(k, order.numpy(), 1))
+    if indices:
+        _same(got_i, want_i)
+        assert torch.equal(got_i.long(), order) and got_i.is_contiguous()
+
+
+@pytest.mark.parametrize("indices", [False, True])
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32, np.uint32,
+                                   np.uint16, np.int16, np.float16],
+                         ids=lambda d: np.dtype(d).name)
+def test_radix_rows_key_dtypes(rng, dtype, descending,
+                               indices):
+    """Keys of every 32- and 16-bit dtype, ascending and descending, with
+    and without indices, across a row's tiles: sortx's row sort and a
+    stable torch.sort, bit for bit."""
+    k = _radix_keys(rng, dtype, ROW_SHAPES["one_past_the_pair_tile"])
+    _check_radix_rows(k, descending, indices)
+
+
+@pytest.mark.parametrize("indices", [False, True])
+@pytest.mark.parametrize("shape", list(ROW_SHAPES.values()),
+                         ids=list(ROW_SHAPES))
+def test_radix_rows_lengths_against_the_tiles(rng, shape,
+                                              indices):
+    """Rows below, at and one word past K12's tiles, and one row of three
+    tiles: the row's words spread evenly over its tiles."""
+    _check_radix_rows(_radix_keys(rng, np.float32, shape), True, indices)
+
+
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("vdtype", [np.uint32, np.int8],
+                         ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("dtype", [np.float32, np.uint32],
+                         ids=lambda d: np.dtype(d).name)
+def test_radix_sort_kv_rows_payloads(rng, dtype, vdtype,
+                                     descending):
+    """A 32-bit and an 8-bit payload follow their keys in the stable
+    order."""
+    k = _radix_keys(rng, dtype, (3, PAIR_TILE + 1))
+    v = rng.randint(-128, 128, size=k.shape).astype(vdtype)
+    want = sortx.sort_kv_rows(jnp.asarray(k), jnp.asarray(v),
+                              descending=descending, config=HOST)
+    got = sortx_torch.sort_kv_rows(to_torch(k), to_torch(v),
+                                   descending=descending, config=RADIX)
+    for g, w in zip(got, want):
+        _same(g, w)
+    order = _stable_order(k, descending)
+    _same(got[1], np.take_along_axis(v, order.numpy(), 1))

@@ -199,9 +199,11 @@ def test_degenerate_rows_give_zero_indices(shape):
     _same(got_i, np.zeros(shape, np.int32))
 
 
-@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("engine", ENGINES + ["radix"])
 def test_the_rows_engine_opens_its_span(rng, engine):
-    k = to_torch(_keys(rng, np.float32, (3, 1000)))
+    # rows longer than 2^11 take the rows' radix engine under "radix"
+    k = to_torch(_keys(rng, np.float32, (3, 3000 if engine == "radix"
+                                         else 1000)))
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         sortx_torch.sort_rows(k, descending=True, return_indices=True,
                               config=sortx_torch.Config(engine=engine))
@@ -210,9 +212,15 @@ def test_the_rows_engine_opens_its_span(rng, engine):
              if e.name().startswith("sortx_torch.")]
     names = sorted(name for name, *_ in spans)
     want = ["sortx_torch.api.sort_rows", "sortx_torch.engine.rows"]
-    if engine == "network":
-        want.insert(1, "sortx_torch.driver.bitonic")
+    driver = {"network": "sortx_torch.driver.bitonic",
+              "radix": "sortx_torch.driver.radix_rows"}.get(engine)
+    if driver:
+        want.insert(1, driver)
     assert names == want
     (api,) = [s for s in spans if s[0] == "sortx_torch.api.sort_rows"]
     (eng,) = [s for s in spans if s[0] == "sortx_torch.engine.rows"]
     assert api[1] <= eng[1] and eng[2] <= api[2]
+    if engine == "radix":
+        # the engine's buffers come first, under its own span
+        (drv,) = [s for s in spans if s[0] == driver]
+        assert eng[1] < drv[1] and drv[2] <= eng[2]
