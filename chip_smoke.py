@@ -32,6 +32,12 @@ u32 keys, 512 MB per stream, or 2048 rows of 2^16):
              and four K12 passes; the sampler's 256 x 129,280 float32
              probabilities descending with indices too), then the same
              calls under Config(engine="network") on the row network
+  top_k_rows K13's four rounds and K14 against their plain versions,
+             then top_k_rows at DeepSeek-V3.2's indexer shape (4096
+             causal rows of 126,977 to 131,072 float32 scores, k = 2048)
+             against the benchmark's plain reference, with the times of
+             each round, K14, the call, torch.topk and the sort_rows
+             route
   select     histogram, kth_value, median and top_k
   movers     apply_runs on two radix-style piece plans: a radix-16 pass
              (256 tiles x 16 digits) from its numpy plan, and an 8-bit
@@ -148,6 +154,7 @@ from sortx_torch.ops import bitonic as tb
 from sortx_torch.ops import radix as rx
 from sortx_torch.ops import radix_rows as rr
 from sortx_torch.ops import sort_hybrid as hy
+from sortx_torch.ops import topk_rows as tk
 from sortx_torch.ops.radix_kernels import histogram_plain, tile_histogram
 from sortx_torch.ops.scan import scan_plain, tile_scan
 from sortx_torch.ops.shuffle import (apply_runs, apply_runs_plain,
@@ -186,14 +193,24 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     # sorts long rows where the reference ran the network in rows mode
     "radix_rows_histogram": ("sortx_torch/csrc/radix_rows.cu", "none"),
     "radix_rows_onesweep": ("sortx_torch/csrc/radix_rows.cu", "none"),
+    # K13 and K14 replace no Pallas kernel: sortx has no per-row top-k
+    "topk_rows_histogram": ("sortx_torch/csrc/topk_rows.cu", "none"),
+    "topk_rows_gather": ("sortx_torch/csrc/topk_rows.cu", "none"),
 }
 NETWORK = ("bitonic_block", "bitonic_tail", "bitonic_global")
 RADIX = ("radix_histogram", "radix_onesweep")
 ROWS_RADIX = ("radix_rows_histogram", "radix_rows_onesweep")
+TOPK_ROWS = ("topk_rows_histogram", "topk_rows_gather")
+# DeepSeek-V3.2's indexer: the last 4096-token prefill chunk of a 128k
+# prompt, the top 2048 of each query's causal row of float32 scores
+INDEXER = (4096, 131_072, 2048)
 SAMPLER = (256, 129_280)    # the top-p sampler's rows: DeepSeek-V3's vocab
 # the plain reference of the benchmark's sampler cell
 TOPP_REF = spec.load_module(Path(__file__).resolve().parent / "portbench" /
                             "reference" / "topp_rows.py")
+# the plain reference of the benchmark's indexer cell
+DSA_REF = spec.load_module(Path(__file__).resolve().parent / "portbench" /
+                           "reference" / "dsa_topk.py")
 # The card's peaks the bounds divide by (H100 SXM, NVIDIA's data sheet):
 # device memory 3.35 TB/s; integer compare, min, max, add and select
 # run outside the tensor cores on 64 INT32 lanes per SM, one operation
@@ -360,6 +377,7 @@ def kernel_checks(dev) -> dict:
     mover_checks(dev, err)
     radix_checks(rng, dev, err)
     radix_rows_checks(dev, err)
+    topk_rows_checks(dev, err)
     return err
 
 
@@ -848,6 +866,95 @@ def hybrid_path(dev) -> dict:
           and torch.equal(u64(out), torch.sort(u64(two)).values),
           f"hybrid sort of {N} keys from {{3, 0xFFFFFFFF}}: the overflow "
           "branch ran, == torch.sort")
+    return counts
+
+
+def indexer_scores(dev, seed: int, rows: int = INDEXER[0]):
+    """The indexer cell's causal rows of float32 scores (+inf past each
+    row's length) and their lengths, from seeded words."""
+    context = INDEXER[1]
+    n = int(DSA_REF.row_lengths(rows, context).sum())
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, generator=gen,
+                      device=dev)
+    return DSA_REF.causal_scores(w, rows, context)
+
+
+def topk_rows_checks(dev, err: dict) -> None:
+    """K13's four rounds and K14 against their plain versions: the
+    indexer's first 256 rows, tied u32 rows, rows whose keys share one
+    24-bit bucket and all-equal rows, with lengths of L, 0, 1, k and
+    random; K14's kept indices compared as each row's set (its winners
+    come in the order its CTAs take them)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    k = INDEXER[2]
+    for what in ("indexer", "tied u32", "crowded bucket", "all equal"):
+        if what == "indexer":
+            scores, lengths = indexer_scores(dev, SEED + 22, rows=256)
+            keys = scores.view(torch.int32)
+            kind = "f32"
+        else:
+            R, L = 300, 20_000
+            keys = {"tied u32": lambda: cwords(gen, R * L, dev).view(R, L)
+                    & -(1 << 24),
+                    "crowded bucket": lambda: (0x3F800000 + torch.randint(
+                        0, 4, (R, L), generator=gen, device=dev,
+                        dtype=torch.int32)),
+                    "all equal": lambda: torch.full(
+                        (R, L), 77, dtype=torch.int32, device=dev)}[what]()
+            kind = "u32" if what == "tied u32" else "f32"
+            lengths = torch.randint(0, L + 1, (R,), generator=gen,
+                                    device=dev, dtype=torch.int32)
+            lengths[:4] = torch.tensor([L, 0, 1, k], dtype=torch.int32)
+        R, L = keys.shape
+        s_k = torch.empty(tk.scratch_words(R, L), dtype=torch.int32,
+                          device=dev)
+        s_p = torch.empty_like(s_k)
+        for p in range(tk.ROUNDS):
+            got = tk.topk_rows_histogram(keys, lengths, kind, k, p, s_k)
+            want = tk.histogram_round_plain(keys, lengths, kind, k, p, s_p)
+            torch.cuda.synchronize()
+            err["topk_rows_histogram"] = max(err["topk_rows_histogram"],
+                                             max_abs_err(got, want))
+            check(torch.equal(got, want),
+                  f"topk_rows_histogram round {p} {what} {R} x {L} == plain")
+        outs = [torch.empty((3, R, k), dtype=torch.int32, device=dev)
+                for _ in range(2)]
+        tk.topk_rows_gather(keys, lengths, kind, k, -1, s_k, *outs[0])
+        tk.gather_plain(keys, lengths, kind, k, -1, s_p, *outs[1])
+        got, want = (by_index(o) for o in outs)
+        err["topk_rows_gather"] = max(err["topk_rows_gather"],
+                                      max_abs_err(got, want))
+        check(torch.equal(got, want),
+              f"topk_rows_gather {what} {R} x {L} == plain (each row's "
+              "kept slots in index order)")
+        del keys, lengths, s_k, s_p, outs, got, want
+
+
+def by_index(out: torch.Tensor) -> torch.Tensor:
+    """K14's three [R, k] output streams with each row's slots in index
+    order (its winners come in the order its CTAs take them)."""
+    order = torch.sort(out[1], dim=1).indices
+    return torch.stack([t.gather(1, order) for t in out])
+
+
+def topk_rows_path(dev) -> dict:
+    """Phase 5b: top_k_rows at the indexer cell's shape (4096 causal rows
+    of 126,977 to 131,072 float32 scores, k = 2048) under "auto" (four
+    K13, K14 and the row network) against the plain reference. Returns
+    the call's launch counts."""
+    scores, lengths = indexer_scores(dev, SEED + 23)
+    k = INDEXER[2]
+    _build.launches.clear()
+    got = sortx_torch.top_k_rows(scores, k, lengths=lengths)
+    counts = {name: c for name, c in read_launches(
+        "top_k_rows (auto)", TOPK_ROWS).items() if name in TOPK_ROWS}
+    want = DSA_REF.top_k_rows(scores, lengths, k)
+    check(same_tree(got, want), f"top_k_rows {INDEXER[0]} x {INDEXER[1]} "
+          f"k={k}, auto == the indexer cell's plain reference")
+    check(counts == {"topk_rows_histogram": 4, "topk_rows_gather": 1},
+          f"top_k_rows launched four K13 and one K14: {counts}")
+    del scores, lengths, got, want
     return counts
 
 
@@ -1677,7 +1784,99 @@ def timings(dev, card: str, err: dict):
     radix_timings(card, keys, values, err, torch_sort, ms, extra)
     del keys, values
     radix_rows_timings(dev, card, err, ms, extra)
+    topk_rows_timings(dev, card, err, ms, extra)
     return ms, extra
+
+
+def topk_rows_timings(dev, card: str, err: dict, ms: dict,
+                      extra: dict) -> None:
+    """K13 and K14 at the indexer cell's shape (4096 causal rows of
+    126,977 to 131,072 float32 scores, k = 2048): each K13 round and K14
+    from the state the rounds before it left (restored before each call,
+    untimed) beside their plain versions and their bounds by bytes; the
+    whole top_k_rows call; torch.topk(dim=1) of the same rows masked with
+    -inf (the one PyTorch call that selects them; the port never calls
+    it) and the sort_rows route (sort every row, keep the first k)."""
+    torch.cuda.empty_cache()
+    scores, lengths = indexer_scores(dev, SEED + 24)
+    rows, context, k = INDEXER
+    n = int(lengths.sum())
+    keys = scores.view(torch.int32)
+    line = functools.partial(time_line, card)
+    line(f"sortx_torch.top_k_rows f32 {rows} x {context} k={k} with lengths",
+         time_ms(lambda: sortx_torch.top_k_rows(scores, k, lengths=lengths)),
+         n)
+    masked = scores.masked_fill(
+        torch.arange(context, device=dev) >= lengths[:, None], float("-inf"))
+    library = line(f"torch.topk(k={k}, dim=1) f32 {rows} x {context} "
+                   "masked with -inf", time_ms(
+                       lambda: torch.topk(masked, k, dim=1)), n)
+
+    def sort_route():
+        s, i = sortx_torch.sort_rows(masked, descending=True,
+                                     return_indices=True)
+        return s[:, :k].contiguous(), i[:, :k].contiguous()
+    line(f"sortx_torch.sort_rows route f32 {rows} x {context}: every row "
+         "sorted with indices, the first k kept", time_ms(sort_route, reps=3),
+         n)
+    del masked
+    scratch = torch.empty(tk.scratch_words(rows, context), dtype=torch.int32,
+                          device=dev)
+    plain_scratch = torch.empty_like(scratch)
+    saved = [scratch.clone()]          # the state before each round
+    rounds = []
+    for p in range(tk.ROUNDS):
+        def run(p=p):
+            return tk.topk_rows_histogram(keys, lengths, "f32", k, p,
+                                          scratch)
+
+        def plain(p=p):
+            plain_scratch.copy_(saved[p])
+            return tk.histogram_round_plain(keys, lengths, "f32", k, p,
+                                            plain_scratch)
+        rounds.append(timed_kernel(
+            card, f"topk_rows_histogram {rows} x {context} k={k} round {p}",
+            run, plain, err, "topk_rows_histogram",
+            setup=lambda p=p: scratch.copy_(saved[p])))
+        run()
+        saved.append(scratch.clone())
+    ms["topk_rows_histogram"] = tuple(sum(t) / len(t) for t in zip(*rounds))
+    # a round reads each valid key once; the row state it writes is a few
+    # words a row
+    extra["topk_rows_histogram"] = dict(bound(4 * n, 0), library_ms=library)
+    out = torch.empty((3, rows, k), dtype=torch.int32, device=dev)
+
+    def gather():          # each row's kept slots in index order
+        tk.topk_rows_gather(keys, lengths, "f32", k, -1, scratch, *out)
+        return by_index(out)
+
+    def plain_gather():
+        plain_scratch.copy_(saved[-1])
+        tk.gather_plain(keys, lengths, "f32", k, -1, plain_scratch, *out)
+        return by_index(out)
+    gather_ms = time_ms(lambda: tk.topk_rows_gather(
+        keys, lengths, "f32", k, -1, scratch, *out),
+        setup=lambda: scratch.copy_(saved[-1]))
+    got = [g.clone() for g in _outputs(lambda: scratch.copy_(saved[-1]),
+                                       gather)]
+    want = _outputs(None, plain_gather)
+    err["topk_rows_gather"] = max(err["topk_rows_gather"],
+                                  max_abs_err(got[0], want[0]))
+    check(torch.equal(got[0], want[0]), f"topk_rows_gather {rows} x "
+          f"{context} k={k}: timed kernel output == plain")
+    ms["topk_rows_gather"] = (
+        time_line(card, f"topk_rows_gather {rows} x {context} k={k} kernel",
+                  gather_ms),
+        time_line(card, f"topk_rows_gather {rows} x {context} k={k} plain",
+                  time_ms(plain_gather, reps=1)))
+    # K14 reads each valid key once and writes each kept slot's mapped
+    # word, index and own word
+    extra["topk_rows_gather"] = dict(bound(4 * n + 12 * rows * k, 0),
+                                     library_ms=library)
+    for name in TOPK_ROWS:
+        print(f"bound {name} {rows} x {context}: "
+              f"{extra[name]['bound_ms']!r} ms by {extra[name]['bound_by']}")
+    del scores, lengths, keys, scratch, plain_scratch, saved, out
 
 
 def radix_timings(card: str, keys, values, err: dict, torch_sort: float,
@@ -3434,6 +3633,7 @@ def main() -> None:
     counts["run_mover"] = hybrid_path(dev)["run_mover"]
     counts.update({k: c for k, c in rows_path(dev).items()
                    if k in ROWS_RADIX})
+    counts.update(topk_rows_path(dev))
     counts["histogram"] = select_path(dev)["histogram"]
     counts["piece_mover"] = movers_path(dev)["piece_mover"]
     took("hybrid, rows, select and movers paths")

@@ -17,6 +17,10 @@ Layer map:
   sort_rows / sort_kv_rows         ops/rows.py
   histogram / kth_value / median / top_k
                                    ops/histogram.py, ops/select.py
+  top_k_rows                       ops/topk_rows.py (per-row top-k over
+                                   rows of their own lengths: a radix
+                                   select, K13 and K14, then the row
+                                   network)
   sort_u64 / sort_kv_u64 / argsort / lexsort
                                    ops/extras.py
   merge / merge_kv                 ops/merge.py
@@ -32,12 +36,13 @@ Layer map:
                                    ops/sort_hybrid.py, ops/sort_host.py
   bitonic network pass plans       ops/bitonic.py
   kernel wrappers                  ops/radix.py, ops/radix_rows.py,
-                                   ops/bitonic.py, ops/scan.py,
+                                   ops/topk_rows.py, ops/bitonic.py, ops/scan.py,
                                    ops/radix_kernels.py, ops/shuffle.py
   kernels                          csrc/radix.cu (K9, K10: the main
                                    path), csrc/radix_rows.cu (K11, K12:
                                    the long rows; both include
-                                   csrc/onesweep.cuh), csrc/bitonic.cu
+                                   csrc/onesweep.cuh), csrc/topk_rows.cu
+                                   (K13, K14: top_k_rows), csrc/bitonic.cu
                                    (K1-K3), csrc/scan.cu (K4),
                                    csrc/histogram.cu (K5), csrc/shuffle.cu
                                    (K6, K7)
@@ -62,7 +67,8 @@ from .ops import (argsort, histogram, is_sorted, kth_value, lexsort, median,
                   run_length_encode, scan, scan_by_key, scan_segments,
                   searchsorted, sort, sort_kv, sort_kv_large, sort_kv_rows,
                   sort_kv_segments, sort_kv_u64, sort_large, sort_rows,
-                  sort_segments, sort_u64, sum_by_key, top_k, unique)
+                  sort_segments, sort_u64, sum_by_key, top_k, top_k_rows,
+                  unique)
 from .parallel import (dist_scan, dist_sort, dist_sort_kv,
                        dist_sort_kv_padded, dist_sort_padded,
                        make_sort_mesh)
@@ -80,7 +86,8 @@ __all__ = ["ParallelPrimitives", "Config", "default_config",
            "scan", "scan_by_key", "scan_segments", "searchsorted", "sort",
            "sort_kv", "sort_kv_large", "sort_kv_rows", "sort_kv_segments",
            "sort_kv_u64", "sort_large", "sort_rows", "sort_segments",
-           "sort_u64", "sum_by_key", "top_k", "unique", "dist_scan",
+           "sort_u64", "sum_by_key", "top_k", "top_k_rows", "unique",
+           "dist_scan",
            "dist_sort", "dist_sort_kv", "dist_sort_padded",
            "dist_sort_kv_padded", "make_sort_mesh", "parallel",
            "reference", "runtime", "utils", "__version__"]

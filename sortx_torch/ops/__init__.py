@@ -16,6 +16,7 @@ from .select import kth_value, median, top_k
 from .shuffle import apply_runs, build_piece_plan, move_runs
 from .sort import sort, sort_kv
 from .sort_host import sort_host as sort_xla, sort_kv_host as sort_kv_xla
+from .topk_rows import top_k_rows
 from .unique import unique
 
 __all__ = ["apply_runs", "argsort", "build_piece_plan",
@@ -26,4 +27,4 @@ __all__ = ["apply_runs", "argsort", "build_piece_plan",
            "searchsorted", "sort", "sort_kv", "sort_kv_large",
            "sort_kv_rows", "sort_kv_segments", "sort_kv_u64", "sort_kv_xla",
            "sort_large", "sort_rows", "sort_segments", "sort_u64",
-           "sort_xla", "sum_by_key", "top_k", "unique"]
+           "sort_xla", "sum_by_key", "top_k", "top_k_rows", "unique"]

@@ -36,11 +36,14 @@ kernels:
     the buffers of K11 and four K12 passes on the caller's words;
     ``sort_network.network_rows``: staging
     into the padded buffer, the row network, unstaging; or
-    ``sort_host.host_rows``);
+    ``sort_host.host_rows``); ``engine.topk_rows``: ``top_k_rows``'s
+    scratch and the row network's buffer
+    (``topk_rows.topk_rows_select``);
   - ``driver.bitonic``: the pass plan and its loop (``ops/bitonic.py``);
     ``driver.radix``: the radix engine's scratch and pass loop
     (``ops/radix.py``); ``driver.radix_rows``: the rows' radix engine's
-    K11 and pass loop (``ops/radix_rows.py``);
+    K11 and pass loop (``ops/radix_rows.py``); ``driver.topk_rows``: the
+    four K13 rounds, K14 and the row sort (``ops/topk_rows.py``);
   - ``launch.<kernel>``: each kernel launch (``ops/_build.py:launch``);
   - ``dist.<step>``: each step of the distributed sort
     (:func:`profiled_step`), whose times on the card are kept as a

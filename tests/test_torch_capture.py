@@ -10,8 +10,9 @@ the CPU:
 
 - every op of the capture list runs under ``FakeTensorMode`` (which
   raises on a host read of data and on a data-dependent shape) with
-  ``Config(engine="network")``, and ``sort`` / ``sort_kv`` and rows
-  longer than 2^11 also with ``Config(engine="radix")``, and makes no
+  ``Config(engine="network")``, and ``sort`` / ``sort_kv``, rows
+  longer than 2^11 and ``top_k_rows`` also with
+  ``Config(engine="radix")``, and makes no
   tensor from host data
   (on the card that is an upload, which syncs and cannot be captured);
 - each op the reference tests under ``jax.jit`` equals
@@ -85,7 +86,8 @@ def _inputs(seed: int = 0) -> dict:
         rows=rng.randint(0, 2**32, (6, 500), dtype=np.uint32),
         rvals=rng.randint(0, 2**31, (6, 500)).astype(np.int32),
         long_rows=np.round(rng.randn(2, 2100) * 8).astype(np.float32),
-        long_rvals=rng.randint(-128, 128, (2, 2100)).astype(np.int8))
+        long_rvals=rng.randint(-128, 128, (2, 2100)).astype(np.int8),
+        row_lengths=np.array([500, 0, 1, 37, 64, 499], np.int32))
 
 
 def _kv(t, **kw):
@@ -160,6 +162,10 @@ OPS = {
         t["long_rows"], descending=True, return_indices=True, config=RADIX),
     "sort_kv_rows radix": lambda t: sortx_torch.sort_kv_rows(
         t["long_rows"], t["long_rvals"], config=RADIX),
+    "top_k_rows with lengths": lambda t: sortx_torch.top_k_rows(
+        t["rows"], 64, lengths=t["row_lengths"], config=NET),
+    "top_k_rows radix": lambda t: sortx_torch.top_k_rows(
+        t["long_rows"], 100, config=RADIX),
 }
 
 

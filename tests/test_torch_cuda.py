@@ -1725,3 +1725,124 @@ def test_radix_rows_capture_and_replay(dev):
         graph.replay()
         torch.cuda.synchronize()
         assert _same_tree(out, run(static, NETWORK)), kind
+
+
+# --- top_k_rows: K13 and K14 ----------------------------------------------
+
+DSA_REF = spec.load_module(Path(__file__).resolve().parents[1] / "portbench" /
+                           "reference" / "dsa_topk.py")
+
+
+def _topk_keys(kind, shape, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "f32":
+        return torch.randn(shape, generator=g, device=dev)
+    if kind == "tied u32":
+        return (torch.randint(0, 40, shape, generator=g, device=dev,
+                              dtype=torch.int32) * 0x1000193).view(
+                                  torch.uint32)
+    if kind == "crowded":      # every key in one bucket of 24 bits
+        return 1.0 + torch.randint(0, 4, shape, generator=g,
+                                   device=dev) * 2.0**-23
+    return torch.full(shape, -7, dtype=torch.int32, device=dev)
+
+
+TOPK_SHAPES = [(6, 40_000, 2048), (3, 100_003, 64), (5, 5000, 5000),
+               (300, 3000, 17)]
+
+
+@pytest.mark.parametrize("kind", ["f32", "tied u32", "crowded", "equal i32"])
+@pytest.mark.parametrize("shape", TOPK_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_topk_rows_kernels_match_plain(dev, shape, kind):
+    """Each K13 round's row state and K14's kept slots (each row's indices,
+    mapped words and own words, compared in index order) against their
+    plain versions, lengths of L, 0, 1, k and random; then the whole op
+    against its plain path on CPU copies."""
+    from sortx_torch.ops import topk_rows as tr
+    from sortx_torch.ops.radix_rows import key_words
+    R, L, k = shape
+    keys = _topk_keys(kind, (R, L), dev, seed=R + L)
+    g = torch.Generator(device=dev).manual_seed(k)
+    lengths = torch.randint(0, L + 1, (R,), generator=g, device=dev,
+                            dtype=torch.int32)
+    lengths[:4] = torch.tensor([L, 0, 1, min(k, L)], dtype=torch.int32)[:R]
+    w, kd, _ = key_words(keys)
+    s1 = torch.empty(tr.scratch_words(R, L), dtype=torch.int32, device=dev)
+    s2 = torch.empty_like(s1)
+    for p in range(tr.ROUNDS):
+        a = tr.topk_rows_histogram(w, lengths, kd, k, p, s1)
+        b = tr.histogram_round_plain(w, lengths, kd, k, p, s2)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), p
+    outs = [torch.empty((3, R, k), dtype=torch.int32, device=dev)
+            for _ in range(2)]
+    tr.topk_rows_gather(w, lengths, kd, k, -5, s1, *outs[0])
+    tr.gather_plain(w, lengths, kd, k, -5, s2, *outs[1])
+    got, want = (torch.sort(o[1], dim=1) for o in outs)   # by index
+    assert torch.equal(got.values, want.values)
+    for t in (0, 2):   # the mapped and the caller's words follow
+        assert torch.equal(outs[0][t].gather(1, got.indices),
+                           outs[1][t].gather(1, want.indices)), t
+    eager = sortx_torch.top_k_rows(keys, k, lengths=lengths)
+    plain = sortx_torch.top_k_rows(keys.cpu(), k, lengths=lengths.cpu())
+    assert _same_tree(tuple(t.cpu() for t in eager), plain)
+
+
+def test_top_k_rows_at_the_indexer_shape(dev):
+    """The indexer cell's call (4096 causal rows of 126,977 to 131,072
+    float32 scores, +inf past each row, k = 2048) against the plain
+    reference bit for bit: four K13, one K14, one network pass, and a
+    traced call of a memset and those six kernels, nothing else."""
+    rows, context, k = 4096, 131_072, 2048
+    n = int(DSA_REF.row_lengths(rows, context).sum())
+    g = torch.Generator(device=dev).manual_seed(21)
+    words = torch.randint(-2**31, 2**31, (n,), generator=g, device=dev,
+                          dtype=torch.int64).to(torch.int32)
+    scores, lengths = DSA_REF.causal_scores(words, rows, context)
+    del words
+    launches.clear()
+    got = sortx_torch.top_k_rows(scores, k, lengths=lengths)
+    torch.cuda.synchronize()
+    assert dict(launches) == {"topk_rows_histogram": 4,
+                              "topk_rows_gather": 1, "bitonic_block": 1}
+    assert _same_tree(got, DSA_REF.top_k_rows(scores, lengths, k))
+
+    def call():
+        sortx_torch.top_k_rows(scores, k, lengths=lengths)
+        torch.cuda.synchronize()
+    sl = tracing.record(call, calls=1, warm=1)
+    names = [tracing.kernel_name(n) for *_, n in sorted(sl.device)]
+    assert names[0].startswith("Memset")
+    assert names[1:] == ["topk_rows_histogram_kernel"] * 4 + [
+        "topk_rows_gather_kernel", "bitonic_block_kernel"]
+
+
+def test_top_k_rows_capture_and_replay(dev):
+    """top_k_rows captured once into a CUDA graph and replayed on new
+    scores and lengths, tied rows and all-equal rows: each replay equals
+    the plain path's eager call."""
+    R, L, k = 64, 20_000, 300
+    static = {"k": torch.randn(R, L, device=dev),
+              "n": torch.full((R,), L, dtype=torch.int32, device=dev)}
+
+    def run(st, cfg=None):
+        return sortx_torch.top_k_rows(st["k"], k, lengths=st["n"],
+                                      config=cfg)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run(static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run(static)
+    g = torch.Generator(device=dev).manual_seed(5)
+    for kind in ("f32", "tied u32", "equal i32"):
+        keys = _topk_keys(kind, (R, L), dev, seed=9).view(torch.float32)
+        static["k"].copy_(keys)
+        static["n"].copy_(torch.randint(0, L + 1, (R,), generator=g,
+                                        device=dev, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_tree(out, run(static, NETWORK)), kind
