@@ -32,12 +32,13 @@ u32 keys, 512 MB per stream, or 2048 rows of 2^16):
              and four K12 passes; the sampler's 256 x 129,280 float32
              probabilities descending with indices too), then the same
              calls under Config(engine="network") on the row network
-  top_k_rows K13's four rounds and K14 against their plain versions,
-             then top_k_rows at DeepSeek-V3.2's indexer shape (4096
-             causal rows of 126,977 to 131,072 float32 scores, k = 2048)
-             against the benchmark's plain reference, with the times of
-             each round, K14, the call, torch.topk and the sort_rows
-             route
+  top_k_rows K13, K14 and K15 against their plain versions (rows that
+             finish on their buffer and rows that read themselves
+             again), then top_k_rows at DeepSeek-V3.2's indexer shape
+             (4096 causal rows of 126,977 to 131,072 float32 scores, k =
+             2048) against the benchmark's plain reference, with the
+             times of each kernel, the call, torch.topk and the
+             sort_rows route
   select     histogram, kth_value, median and top_k
   movers     apply_runs on two radix-style piece plans: a radix-16 pass
              (256 tiles x 16 digits) from its numpy plan, and an 8-bit
@@ -193,14 +194,16 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     # sorts long rows where the reference ran the network in rows mode
     "radix_rows_histogram": ("sortx_torch/csrc/radix_rows.cu", "none"),
     "radix_rows_onesweep": ("sortx_torch/csrc/radix_rows.cu", "none"),
-    # K13 and K14 replace no Pallas kernel: sortx has no per-row top-k
+    # K13-K15 replace no Pallas kernel: sortx has no per-row top-k
     "topk_rows_histogram": ("sortx_torch/csrc/topk_rows.cu", "none"),
     "topk_rows_gather": ("sortx_torch/csrc/topk_rows.cu", "none"),
+    "topk_rows_buffer_select": ("sortx_torch/csrc/topk_rows.cu", "none"),
 }
 NETWORK = ("bitonic_block", "bitonic_tail", "bitonic_global")
 RADIX = ("radix_histogram", "radix_onesweep")
 ROWS_RADIX = ("radix_rows_histogram", "radix_rows_onesweep")
-TOPK_ROWS = ("topk_rows_histogram", "topk_rows_gather")
+TOPK_ROWS = ("topk_rows_histogram", "topk_rows_gather",
+             "topk_rows_buffer_select")
 # DeepSeek-V3.2's indexer: the last 4096-token prefill chunk of a 128k
 # prompt, the top 2048 of each query's causal row of float32 scores
 INDEXER = (4096, 131_072, 2048)
@@ -881,14 +884,16 @@ def indexer_scores(dev, seed: int, rows: int = INDEXER[0]):
 
 
 def topk_rows_checks(dev, err: dict) -> None:
-    """K13's four rounds and K14 against their plain versions: the
-    indexer's first 256 rows, tied u32 rows, rows whose keys share one
-    24-bit bucket and all-equal rows, with lengths of L, 0, 1, k and
-    random; K14's kept indices compared as each row's set (its winners
-    come in the order its CTAs take them)."""
+    """K13, K14 and K15 against their plain versions: the indexer's first
+    256 rows, tied u32 rows, rows whose keys share one 24-bit bucket,
+    three-valued and all-equal rows (their buckets outgrow the buffer, so
+    K15 reads the rows again), with lengths of L, 0, 1, k and random;
+    K14's winners and buffer and K15's kept slots compared in each row's
+    index order (they come in the order the warps take them)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 21)
     k = INDEXER[2]
-    for what in ("indexer", "tied u32", "crowded bucket", "all equal"):
+    for what in ("indexer", "tied u32", "crowded bucket", "three values",
+                 "all equal"):
         if what == "indexer":
             scores, lengths = indexer_scores(dev, SEED + 22, rows=256)
             keys = scores.view(torch.int32)
@@ -900,6 +905,9 @@ def topk_rows_checks(dev, err: dict) -> None:
                     "crowded bucket": lambda: (0x3F800000 + torch.randint(
                         0, 4, (R, L), generator=gen, device=dev,
                         dtype=torch.int32)),
+                    "three values": lambda: 0x3F800000 + (1 << 23) * (
+                        torch.randint(0, 3, (R, L), generator=gen,
+                                      device=dev, dtype=torch.int32)),
                     "all equal": lambda: torch.full(
                         (R, L), 77, dtype=torch.int32, device=dev)}[what]()
             kind = "u32" if what == "tied u32" else "f32"
@@ -910,24 +918,39 @@ def topk_rows_checks(dev, err: dict) -> None:
         s_k = torch.empty(tk.scratch_words(R, L), dtype=torch.int32,
                           device=dev)
         s_p = torch.empty_like(s_k)
-        for p in range(tk.ROUNDS):
-            got = tk.topk_rows_histogram(keys, lengths, kind, k, p, s_k)
-            want = tk.histogram_round_plain(keys, lengths, kind, k, p, s_p)
-            torch.cuda.synchronize()
-            err["topk_rows_histogram"] = max(err["topk_rows_histogram"],
-                                             max_abs_err(got, want))
-            check(torch.equal(got, want),
-                  f"topk_rows_histogram round {p} {what} {R} x {L} == plain")
-        outs = [torch.empty((3, R, k), dtype=torch.int32, device=dev)
-                for _ in range(2)]
-        tk.topk_rows_gather(keys, lengths, kind, k, -1, s_k, *outs[0])
-        tk.gather_plain(keys, lengths, kind, k, -1, s_p, *outs[1])
-        got, want = (by_index(o) for o in outs)
-        err["topk_rows_gather"] = max(err["topk_rows_gather"],
-                                      max_abs_err(got, want))
+        got = tk.topk_rows_histogram(keys, lengths, kind, k, s_k)
+        want = tk.histogram_plain(keys, lengths, kind, k, s_p)
+        torch.cuda.synchronize()
+        err["topk_rows_histogram"] = max(err["topk_rows_histogram"],
+                                         max_abs_err(got, want))
         check(torch.equal(got, want),
-              f"topk_rows_gather {what} {R} x {L} == plain (each row's "
-              "kept slots in index order)")
+              f"topk_rows_histogram {what} {R} x {L} == plain")
+        outs = [torch.zeros((3, R, k), dtype=torch.int32, device=dev)
+                for _ in range(2)]
+        tk.topk_rows_gather(keys, lengths, kind, k, s_k, *outs[0])
+        tk.gather_plain(keys, lengths, kind, k, s_p, *outs[1])
+        taken = tk.row_taken(s_p, R, L)
+        same = torch.equal(tk.row_taken(s_k, R, L), taken)
+        for r in range(R):
+            wins, kept = int(taken[r, 0]), int(taken[r, 1])
+            same &= torch.equal(*(by_index(o[:, r:r + 1, :wins])
+                                  for o in outs))
+            same &= torch.equal(*(by_index(torch.stack(tk.row_buffer(
+                s, R, L))[[0, 1, 0], r:r + 1, :kept]) for s in (s_k, s_p)))
+        check(same, f"topk_rows_gather {what} {R} x {L} == plain (counters; "
+              "winners and buffers in index order)")
+        tk.topk_rows_buffer_select(keys, lengths, kind, k, -1, s_k, *outs[0])
+        tk.buffer_select_plain(keys, lengths, kind, k, -1, s_p, *outs[1])
+        got, want = (by_index(o) for o in outs)
+        err["topk_rows_buffer_select"] = max(
+            err["topk_rows_buffer_select"], max_abs_err(got, want))
+        buffered = int((tk.row_state(s_p, R, L)[2]
+                        <= tk.buffer_cap(L)).sum())
+        check(torch.equal(got, want) and torch.equal(
+            tk.row_state(s_k, R, L), tk.row_state(s_p, R, L)),
+              f"topk_rows_buffer_select {what} {R} x {L} == plain ({buffered}"
+              f" of {R} rows on their buffer; each row's kept slots in index "
+              "order, the row state)")
         del keys, lengths, s_k, s_p, outs, got, want
 
 
@@ -940,20 +963,25 @@ def by_index(out: torch.Tensor) -> torch.Tensor:
 
 def topk_rows_path(dev) -> dict:
     """Phase 5b: top_k_rows at the indexer cell's shape (4096 causal rows
-    of 126,977 to 131,072 float32 scores, k = 2048) under "auto" (four
-    K13, K14 and the row network) against the plain reference. Returns
-    the call's launch counts."""
+    of 126,977 to 131,072 float32 scores, k = 2048) under "auto" (K13,
+    K14, K15 with every row on its buffer, and the row network) against
+    the plain reference. Returns the call's launch counts."""
     scores, lengths = indexer_scores(dev, SEED + 23)
     k = INDEXER[2]
     _build.launches.clear()
+    before = tk.buffer_counts(dev)
     got = sortx_torch.top_k_rows(scores, k, lengths=lengths)
     counts = {name: c for name, c in read_launches(
         "top_k_rows (auto)", TOPK_ROWS).items() if name in TOPK_ROWS}
+    after = tk.buffer_counts(dev)
     want = DSA_REF.top_k_rows(scores, lengths, k)
     check(same_tree(got, want), f"top_k_rows {INDEXER[0]} x {INDEXER[1]} "
           f"k={k}, auto == the indexer cell's plain reference")
-    check(counts == {"topk_rows_histogram": 4, "topk_rows_gather": 1},
-          f"top_k_rows launched four K13 and one K14: {counts}")
+    check(counts == dict.fromkeys(TOPK_ROWS, 1),
+          f"top_k_rows launched one K13, K14 and K15: {counts}")
+    check(after[0] - before[0] == after[1] - before[1] == INDEXER[0],
+          f"top_k_rows: every row finished on its buffer ({before} -> "
+          f"{after})")
     del scores, lengths, got, want
     return counts
 
@@ -1790,13 +1818,14 @@ def timings(dev, card: str, err: dict):
 
 def topk_rows_timings(dev, card: str, err: dict, ms: dict,
                       extra: dict) -> None:
-    """K13 and K14 at the indexer cell's shape (4096 causal rows of
-    126,977 to 131,072 float32 scores, k = 2048): each K13 round and K14
-    from the state the rounds before it left (restored before each call,
-    untimed) beside their plain versions and their bounds by bytes; the
-    whole top_k_rows call; torch.topk(dim=1) of the same rows masked with
-    -inf (the one PyTorch call that selects them; the port never calls
-    it) and the sort_rows route (sort every row, keep the first k)."""
+    """K13, K14 and K15 at the indexer cell's shape (4096 causal rows of
+    126,977 to 131,072 float32 scores, k = 2048): each from the state the
+    kernels before it left (restored before each call, untimed) beside
+    its plain version and its bound by bytes; the bucket sizes K13
+    counted; the whole top_k_rows call; torch.topk(dim=1) of the same
+    rows masked with -inf (the one PyTorch call that selects them; the
+    port never calls it) and the sort_rows route (sort every row, keep
+    the first k)."""
     torch.cuda.empty_cache()
     scores, lengths = indexer_scores(dev, SEED + 24)
     rows, context, k = INDEXER
@@ -1823,60 +1852,88 @@ def topk_rows_timings(dev, card: str, err: dict, ms: dict,
     scratch = torch.empty(tk.scratch_words(rows, context), dtype=torch.int32,
                           device=dev)
     plain_scratch = torch.empty_like(scratch)
-    saved = [scratch.clone()]          # the state before each round
-    rounds = []
-    for p in range(tk.ROUNDS):
-        def run(p=p):
-            return tk.topk_rows_histogram(keys, lengths, "f32", k, p,
-                                          scratch)
+    # the slots a kernel leaves alone hold -1 on both sides
+    out = torch.full((3, rows, k), -1, dtype=torch.int32, device=dev)
+    plain_out = torch.full_like(out, -1)
+    what = f"{rows} x {context} k={k}"
 
-        def plain(p=p):
-            plain_scratch.copy_(saved[p])
-            return tk.histogram_round_plain(keys, lengths, "f32", k, p,
-                                            plain_scratch)
-        rounds.append(timed_kernel(
-            card, f"topk_rows_histogram {rows} x {context} k={k} round {p}",
-            run, plain, err, "topk_rows_histogram",
-            setup=lambda p=p: scratch.copy_(saved[p])))
-        run()
-        saved.append(scratch.clone())
-    ms["topk_rows_histogram"] = tuple(sum(t) / len(t) for t in zip(*rounds))
-    # a round reads each valid key once; the row state it writes is a few
+    def k13():
+        return tk.topk_rows_histogram(keys, lengths, "f32", k, scratch)
+
+    def k13_plain():
+        return tk.histogram_plain(keys, lengths, "f32", k, plain_scratch)
+    ms["topk_rows_histogram"] = timed_kernel(
+        card, f"topk_rows_histogram {what}", k13, k13_plain, err,
+        "topk_rows_histogram")
+    # K13 reads each valid key once; the row state it writes is a few
     # words a row
     extra["topk_rows_histogram"] = dict(bound(4 * n, 0), library_ms=library)
-    out = torch.empty((3, rows, k), dtype=torch.int32, device=dev)
+    size = tk.row_state(plain_scratch, rows, context)[2].to(torch.float64)
+    print(f"topk_rows buckets {what}: keys a row mean {size.mean().item()!r}"
+          f", min {int(size.min())}, max {int(size.max())}, buffer "
+          f"{tk.buffer_cap(context)}")
 
-    def gather():          # each row's kept slots in index order
-        tk.topk_rows_gather(keys, lengths, "f32", k, -1, scratch, *out)
-        return by_index(out)
+    def restore(saved, outs=None):
+        def setup():
+            scratch.copy_(saved[0])
+            plain_scratch.copy_(saved[1])
+            if outs is not None:
+                out.copy_(outs[0])
+                plain_out.copy_(outs[1])
+        return setup
 
-    def plain_gather():
-        plain_scratch.copy_(saved[-1])
-        tk.gather_plain(keys, lengths, "f32", k, -1, plain_scratch, *out)
-        return by_index(out)
-    gather_ms = time_ms(lambda: tk.topk_rows_gather(
-        keys, lengths, "f32", k, -1, scratch, *out),
-        setup=lambda: scratch.copy_(saved[-1]))
-    got = [g.clone() for g in _outputs(lambda: scratch.copy_(saved[-1]),
-                                       gather)]
-    want = _outputs(None, plain_gather)
-    err["topk_rows_gather"] = max(err["topk_rows_gather"],
-                                  max_abs_err(got[0], want[0]))
-    check(torch.equal(got[0], want[0]), f"topk_rows_gather {rows} x "
-          f"{context} k={k}: timed kernel output == plain")
-    ms["topk_rows_gather"] = (
-        time_line(card, f"topk_rows_gather {rows} x {context} k={k} kernel",
-                  gather_ms),
-        time_line(card, f"topk_rows_gather {rows} x {context} k={k} plain",
-                  time_ms(plain_gather, reps=1)))
-    # K14 reads each valid key once and writes each kept slot's mapped
-    # word, index and own word
-    extra["topk_rows_gather"] = dict(bound(4 * n + 12 * rows * k, 0),
-                                     library_ms=library)
+    def timed(name, run, plain, setup, state=False):
+        """(kernel ms, plain ms) of a kernel whose slots land in the order
+        its warps take them: its outputs held equal in index order."""
+        k_ms = time_ms(run, setup)
+        p_ms = time_ms(plain, setup, reps=1)
+        setup()
+        run()
+        plain()
+        got, want = by_index(out), by_index(plain_out)
+        err[name] = max(err[name], max_abs_err(got, want))
+        same = torch.equal(got, want) and torch.equal(
+            tk.row_taken(scratch, rows, context),
+            tk.row_taken(plain_scratch, rows, context))
+        if state:
+            same &= torch.equal(tk.row_state(scratch, rows, context),
+                                tk.row_state(plain_scratch, rows, context))
+        check(same, f"{name} {what}: timed kernel output == plain (each "
+              "row's slots in index order)")
+        return (time_line(card, f"{name} {what} kernel", k_ms),
+                time_line(card, f"{name} {what} plain", p_ms))
+    after13 = (scratch.clone(), plain_scratch.clone())
+    ms["topk_rows_gather"] = timed(
+        "topk_rows_gather",
+        lambda: tk.topk_rows_gather(keys, lengths, "f32", k, scratch, *out),
+        lambda: tk.gather_plain(keys, lengths, "f32", k, plain_scratch,
+                                *plain_out), restore(after13))
+    taken = tk.row_taken(plain_scratch, rows, context).to(torch.int64)
+    wins, buffered = int(taken[:, 0].sum()), int(taken[:, 1].sum())
+    print(f"topk_rows_gather {what}: winners above the bucket a row "
+          f"{wins / rows!r}, buffered keys a row {buffered / rows!r}")
+    # K14 reads each valid key once and writes each winner's mapped word,
+    # index and own word and each buffered key's word and index
+    extra["topk_rows_gather"] = dict(bound(4 * n + 12 * wins + 8 * buffered,
+                                           0), library_ms=library)
+    after14 = (scratch.clone(), plain_scratch.clone())
+    outs14 = (out.clone(), plain_out.clone())
+    ms["topk_rows_buffer_select"] = timed(
+        "topk_rows_buffer_select",
+        lambda: tk.topk_rows_buffer_select(keys, lengths, "f32", k, -1,
+                                           scratch, *out),
+        lambda: tk.buffer_select_plain(keys, lengths, "f32", k, -1,
+                                       plain_scratch, *plain_out),
+        restore(after14, outs14), state=True)
+    # K15 reads each buffered key's word and index once and writes the
+    # rest of each row's k slots
+    extra["topk_rows_buffer_select"] = dict(
+        bound(8 * buffered + 12 * (rows * k - wins), 0), library_ms=library)
     for name in TOPK_ROWS:
         print(f"bound {name} {rows} x {context}: "
               f"{extra[name]['bound_ms']!r} ms by {extra[name]['bound_by']}")
-    del scores, lengths, keys, scratch, plain_scratch, saved, out
+    del scores, lengths, keys, scratch, plain_scratch, out, plain_out
+    del after13, after14, outs14
 
 
 def radix_timings(card: str, keys, values, err: dict, torch_sort: float,

@@ -42,7 +42,7 @@ Layer map:
                                    path), csrc/radix_rows.cu (K11, K12:
                                    the long rows; both include
                                    csrc/onesweep.cuh), csrc/topk_rows.cu
-                                   (K13, K14: top_k_rows), csrc/bitonic.cu
+                                   (K13-K15: top_k_rows), csrc/bitonic.cu
                                    (K1-K3), csrc/scan.cu (K4),
                                    csrc/histogram.cu (K5), csrc/shuffle.cu
                                    (K6, K7)

@@ -1,11 +1,13 @@
 // Per-row top-k of an [R, L] array of 32-bit keys whose rows have lengths of
-// their own, for Hopper (sm_90a): a radix select. K13 counts one 8-bit digit
-// a round over each row's first lengths[r] keys, under the prefix the rounds
-// before it chose, and picks the digit that holds the row's k-th key; after
-// four rounds each row knows its k-th key T and how many of its ties to take.
-// K14 then gathers each row's winners (the keys above T, and the first ties
-// in row order) with their in-row indices and own words; the row network
-// orders them.
+// their own, for Hopper (sm_90a): a radix select that reads each valid key
+// twice. K13 counts each row's 11-bit first digit and picks the bucket that
+// holds the row's k-th key; K14 reads every valid key once more, writes the
+// keys above that bucket (the row's certain winners) to the outputs and the
+// bucket's keys, with their in-row indices, to the row's candidate buffer;
+// K15, one CTA a row, finishes the select on that buffer alone (two more
+// digits, then the gather of the bucket's winners and first ties). The row
+// network orders each row's k slots after them. This is AIR top-k's
+// filtering (Zhang et al., SC'23).
 //
 // Replaces no TPU kernel: sortx has no per-row top-k (sortx/ops/select.py's
 // top_k is 1-D, a tournament on the row network). It is the select that
@@ -14,50 +16,65 @@
 // inference/model.py), which a full sort of every row would do 20 times
 // over.
 //
-// What bounds it on the card: device-memory reads. Each round reads a row's
-// valid keys once (4 bytes a key), and K14 once more: 20 bytes a key in all,
-// against 4 for one read; the outputs (k slots a row of 12 bytes) are small.
-// The design:
+// What bounds it on the card: device-memory reads. K13 and K14 each read a
+// row's valid keys once (4 bytes a key): 8 bytes a key in all, against 4
+// for one read; the buffer (8 bytes a bucket key, about 1.3% of a row of
+// the indexer's scores), the winners and the k output slots a row are
+// small. The design:
 //   - Keys arrive as the caller's own words (u32, i32 or f32 bits) and are
 //     mapped in registers to the unsigned image of ops/sort.py:_to_radix_u32,
 //     complemented, so that the largest key is the smallest word; the top k
 //     are the k smallest words, ties to the lowest index. Nothing past
 //     lengths[r] is read.
-//   - K13: each CTA counts one chunk of one row into per-warp rows of shared
-//     counters (K11's scheme) and adds them into the row's counts with
-//     atomics; the row's last CTA (a per-row ticket after a fence) scans the
-//     256 counts, picks the digit b whose run holds the row's need-th word,
-//     takes the words below it off need, appends b to the row's prefix, and
-//     zeroes the counts and the ticket for the next round. Round 0 sets need
-//     to min(k, lengths[r]). The last round also keeps each chunk's counts,
-//     and the row's last CTA turns those of the chosen digit into each
-//     chunk's count of earlier ties.
-//   - K14: each CTA reads one chunk in row order, 2048 words at a time; a
-//     block-wide OR skips a step that holds no winner and no tie. Where one
-//     does, a block scan ranks the step's winners and ties in row order:
-//     winners (word < T) take slots from the row's atomic counter, ties
-//     (word == T) their rank among the row's ties, kept below need, after
-//     the winners; each carries its mapped word, its index and the
-//     caller's word. The row's first CTA writes its slots past min(k,
-//     lengths[r]) so that they sort last. The row network then sorts each
-//     row by (mapped word, index) with the caller's words following, so no
-//     pass decodes the words.
-//   - One scratch buffer holds the counts, tickets and winner counters
-//     (zeroed by one cudaMemsetAsync in round 0's entry) and the rows'
-//     need, prefix, chunk tie bases and last-round chunk counts, which each
-//     round writes before they are read. Nothing is read on the host, so a
-//     call can be captured in a CUDA graph.
+//   - The digits: bits 21..31 (K13), 10..20 and 0..9 (K15). An 11-bit first
+//     digit spreads a row of scores over about a hundred bins, where 8 bits
+//     crowd them into a dozen, so the bucket holds about 1.3% of a row.
+//   - K13: each CTA counts one chunk of one row into per-warp 16-bit
+//     counters in shared memory (two to a word) and adds them into the row's
+//     counts with atomics; the row's last CTA (a per-row ticket after a
+//     fence) scans the 2048 counts, picks the bucket b whose run holds the
+//     row's min(k, lengths[r])-th word, and keeps b, the words still to take
+//     in it (need) and its size.
+//   - K14: each warp reads 512 words a step; its winners (digit < b) take
+//     slots in the outputs and its bucket keys slots in the buffer from one
+//     64-bit atomic on the row's counters, in no set order. A row whose
+//     bucket is larger than its buffer (a low-entropy row) writes no bucket
+//     key: K15 reads its whole row instead. The card decides that from the
+//     row's own bucket size, with nothing read on the host.
+//   - K15: one CTA a row counts the next two digits over the buffer (or the
+//     row's bucket keys) in shared memory, which gives the row's k-th word T
+//     and the number of its ties to keep; where the row holds more ties than
+//     that, a radix select of the ties' indices finds the last tie kept, so
+//     the lowest indices win whatever the buffer's order. It then writes the
+//     bucket's winners after K14's and the kept ties last, each with its
+//     mapped word, index and own word, and fills the slots past min(k,
+//     lengths[r]) so that they sort last; the row network sorts each row by
+//     (mapped word, index) with the caller's words following.
+//   - One scratch buffer holds the counts, tickets and the rows' counters
+//     (zeroed by one cudaMemsetAsync before K13), the rows' need, bucket and
+//     size, and the candidate buffers. A call can be captured in a CUDA
+//     graph.
 // Tiles, threads and the chunk are constants here: which keys are selected
-// does not depend on them; the winners' slot order does, and the row sort
-// after K14 makes the result unique.
+// does not depend on them; the slots' order does, and the row sort after
+// K15 makes the result unique.
 
 #include "onesweep.cuh"
 
 namespace {
 
 constexpr long long kChunk = 16384;   // words of a row a CTA, K13 and K14
-constexpr int kGatherItems = 8;       // K14: words a thread a step
-constexpr int kStep = kThreads * kGatherItems;
+constexpr int kTopBits = 11;          // K13's digit, the word's top bits
+constexpr int kMidBits = 11;          // then K15's two
+constexpr int kLowBits = 10;
+constexpr int kBins = 1 << kTopBits;  // the most bins a digit has
+constexpr int kTopShift = 32 - kTopBits;
+constexpr int kBinsAThread = kBins / kThreads;
+constexpr int kItems = 16;            // K14: words a lane a step
+constexpr int kWarpStep = 32 * kItems;
+constexpr long long kMinBuffer = 1024;   // a row's buffer holds at least
+static_assert(kTopBits + kMidBits + kLowBits == 32, "the digits a word");
+static_assert(kMidBits <= kTopBits && kLowBits <= kTopBits, "kBins bins");
+static_assert(kChunk < (1 << 16), "K13's 16-bit counters");
 
 // The descending order map of csrc/radix_rows.cu's WordMap: the complement
 // of w ^ ((w's sign spread over the word & neg_mask) | pos_xor), and its
@@ -79,13 +96,15 @@ struct KeyMap {
 
 // The scratch's parts (int32 words; see sortx_topk_rows_histogram).
 struct Rows {
-  uint32_t* counts;         // rows x 256, zero between rounds
-  uint32_t* tickets;        // a row's, zero between rounds
-  uint32_t* taken;          // K14's winner counter a row, zero
-  uint32_t* need;           // a row's keys still to take at its prefix
-  uint32_t* prefix;         // a row's chosen digits so far
-  uint32_t* tie_base;       // rows x chunks: ties in the chunks before
-  uint32_t* chunk_counts;   // rows x chunks x 256: the last round's
+  uint32_t* counts;            // rows x kBins: K13's, zeroed
+  uint32_t* tickets;           // a row's, zeroed
+  unsigned long long* taken;   // a row's: K14's winners | buffered << 32
+  uint32_t* need;              // a row's keys still to take at its prefix
+  uint32_t* prefix;            // its chosen digits (K15: its k-th word)
+  uint32_t* bucket;            // its bucket's keys (K13's digit)
+  uint32_t* buf_words;         // rows x cap: the bucket's mapped words
+  uint32_t* buf_index;         // rows x cap: and their in-row indices
+  long long cap;
 };
 
 __device__ __forceinline__ long long row_length(const int* lengths,
@@ -95,35 +114,61 @@ __device__ __forceinline__ long long row_length(const int* lengths,
   return n < 0 ? 0 : (n > len ? len : n);
 }
 
-// --- K13: one digit a row under the row's prefix, and the digit chosen ---
+__device__ __forceinline__ uint32_t kept_of(uint32_t k, long long n) {
+  return static_cast<uint32_t>(k < static_cast<uint64_t>(n) ? k : n);
+}
 
-template <bool kFiltered, bool kLast>
+// The bin of kBins counts (kBinsAThread consecutive ones a thread, in c)
+// whose run holds the need-th counted word: its digit, the words still to
+// take in it and its count, to the thread that holds it (need > 0).
+struct Pick {
+  uint32_t digit, need, count;
+};
+
+__device__ __forceinline__ bool pick_bin(const uint32_t (&c)[kBinsAThread],
+                                         uint32_t need, uint32_t* warp_sums,
+                                         Pick* out) {
+  uint32_t sum = 0;
+#pragma unroll
+  for (int j = 0; j < kBinsAThread; ++j) sum += c[j];
+  uint32_t before = block_exclusive_scan(sum, warp_sums);
+  bool mine = false;
+#pragma unroll
+  for (int j = 0; j < kBinsAThread; ++j) {
+    if (need > 0 && before < need && need <= before + c[j]) {
+      *out = {static_cast<uint32_t>(kBinsAThread * threadIdx.x + j),
+              need - before, c[j]};
+      mine = true;
+    }
+    before += c[j];
+  }
+  return mine;
+}
+
+// --- K13: each row's first digit and the bucket chosen -------------------
+
 __global__ void __launch_bounds__(kThreads)
     topk_rows_histogram_kernel(const uint32_t* __restrict__ keys,
                                long long len, const int* lengths, int chunks,
-                               int wide, KeyMap map, uint32_t k, int shift,
-                               Rows s) {
-  __shared__ uint32_t warp_rows[kWarps][kRadix];
+                               int wide, KeyMap map, uint32_t k, Rows s) {
+  // per-warp 16-bit counters, two to a word: a CTA counts < 2^16 words
+  __shared__ uint4 warp_rows[kWarps][kBins / 8];
   __shared__ uint32_t warp_sums[kWarps];
-  __shared__ uint32_t chosen, total;
   __shared__ bool last;
-  for (int i = threadIdx.x; i < kWarps * kRadix; i += kThreads) {
-    (&warp_rows[0][0])[i] = 0;
+  for (int i = threadIdx.x; i < kWarps * kBins / 8; i += kThreads) {
+    (&warp_rows[0][0])[i] = make_uint4(0, 0, 0, 0);
   }
   __syncthreads();
-  uint32_t* mine = warp_rows[threadIdx.x >> 5];
+  uint32_t* mine = reinterpret_cast<uint32_t*>(warp_rows[threadIdx.x >> 5]);
   const long long row = blockIdx.x / chunks;
   const int chunk = static_cast<int>(blockIdx.x % chunks);
   const long long n = row_length(lengths, row, len);
   const long long lo = chunk * kChunk;
   const long long hi = lo + kChunk < n ? lo + kChunk : n;
-  const uint32_t pre = kFiltered ? s.prefix[row] : 0u;
   const uint32_t* in = keys + row * len;
   auto count = [&](uint32_t w) {
-    const uint32_t u = map.encode(w);
-    if (!kFiltered || (u >> (shift + 8)) == pre) {
-      atomicAdd(mine + ((u >> shift) & 0xffu), 1u);
-    }
+    const uint32_t d = map.encode(w) >> kTopShift;
+    atomicAdd(mine + (d >> 1), 1u << ((d & 1u) << 4));
   };
   long long i = lo + threadIdx.x;
   if (wide && lo < hi) {   // L % 4 == 0 and the keys on 16 bytes
@@ -154,13 +199,28 @@ __global__ void __launch_bounds__(kThreads)
   for (; i < hi; i += kThreads) count(__ldg(in + i));
   __syncthreads();
 
-  const int d = threadIdx.x;
-  uint32_t* row_counts = s.counts + row * kRadix;
-  uint32_t c = 0;
+  // thread t sums bins 8t .. 8t + 7 over the warps (the halves add apart:
+  // each stays below 2^16)
+  uint32_t c[kBinsAThread];
+  {
+    uint4 both = make_uint4(0, 0, 0, 0);
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) c += warp_rows[w][d];
-  if (c) atomicAdd(row_counts + d, c);
-  if (kLast) s.chunk_counts[(row * chunks + chunk) * kRadix + d] = c;
+    for (int w = 0; w < kWarps; ++w) {
+      const uint4 q = warp_rows[w][threadIdx.x];
+      both.x += q.x, both.y += q.y, both.z += q.z, both.w += q.w;
+    }
+    const uint32_t words[4] = {both.x, both.y, both.z, both.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      c[2 * j] = words[j] & 0xffffu;
+      c[2 * j + 1] = words[j] >> 16;
+    }
+  }
+  uint32_t* row_counts = s.counts + row * kBins + kBinsAThread * threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < kBinsAThread; ++j) {
+    if (c[j]) atomicAdd(row_counts + j, c[j]);
+  }
   __threadfence();   // this CTA's counts are in before its ticket
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -169,137 +229,299 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   if (!last) return;
   __threadfence();
-  const uint32_t all = __ldcg(row_counts + d);
-  row_counts[d] = 0;
-  const uint32_t before = block_exclusive_scan(all, warp_sums);
-  const uint32_t need =
-      kFiltered ? s.need[row]
-                : static_cast<uint32_t>(k < static_cast<uint64_t>(n) ? k : n);
-  if (threadIdx.x == 0) {
-    s.tickets[row] = 0;
-    chosen = 0;
-    if (need == 0) {   // an empty row: nothing to choose
-      s.need[row] = 0;
-      s.prefix[row] = pre << 8;
-    }
-  }
-  __syncthreads();
-  if (need > 0 && before < need && need <= before + all) {
-    s.need[row] = need - before;
-    s.prefix[row] = (pre << 8) | static_cast<uint32_t>(d);
-    chosen = d;
-  }
-  if (!kLast) return;
-  __syncthreads();
-  // each chunk's ties (words equal to the row's k-th) in the chunks before
-  const uint32_t b = chosen;
-  uint32_t carry = 0;
-  for (int c0 = 0; c0 < chunks; c0 += kThreads) {
-    const int ci = c0 + threadIdx.x;
-    const uint32_t t =
-        ci < chunks ? __ldcg(s.chunk_counts + (row * chunks + ci) * kRadix + b)
-                    : 0u;
-    const uint32_t ex = block_exclusive_scan(t, warp_sums);
-    if (ci < chunks) s.tie_base[row * chunks + ci] = carry + ex;
-    if (threadIdx.x == kThreads - 1) total = ex + t;
-    __syncthreads();
-    carry += total;
+#pragma unroll
+  for (int j = 0; j < kBinsAThread; ++j) c[j] = __ldcg(row_counts + j);
+  const uint32_t need = kept_of(k, n);
+  Pick p;
+  if (pick_bin(c, need, warp_sums, &p)) {
+    s.need[row] = p.need;
+    s.prefix[row] = p.digit;
+    s.bucket[row] = p.count;
+  } else if (need == 0 && threadIdx.x == 0) {   // an empty row
+    s.need[row] = 0;
+    s.prefix[row] = 0;
+    s.bucket[row] = 0;
   }
 }
 
-// --- K14: each row's winners and first ties, with their indices ----------
+// --- K14: each row's winners above its bucket, and the bucket's keys -----
 
 __global__ void __launch_bounds__(kThreads)
     topk_rows_gather_kernel(const uint32_t* __restrict__ keys, long long len,
                             const int* lengths, int chunks, int wide,
-                            KeyMap map, uint32_t k, Rows s,
+                            KeyMap map, Rows s,
                             uint32_t* __restrict__ keys_out,
                             uint32_t* __restrict__ index_out,
                             uint32_t* __restrict__ words_out,
-                            long long out_len, uint32_t lowest) {
-  __shared__ uint32_t warp_sums[kWarps];
-  __shared__ uint32_t step_base, step_ties;
+                            long long out_len) {
   const long long row = blockIdx.x / chunks;
   const int chunk = static_cast<int>(blockIdx.x % chunks);
   const long long n = row_length(lengths, row, len);
-  const uint32_t kept = static_cast<uint32_t>(
-      k < static_cast<uint64_t>(n) ? k : n);
-  uint32_t* kout = keys_out + row * out_len;
-  uint32_t* iout = index_out + row * out_len;
-  uint32_t* wout = words_out + row * out_len;
-  if (chunk == 0) {   // the row's slots past its kept keys: sorted last
-    for (long long j = kept + threadIdx.x; j < out_len; j += kThreads) {
-      kout[j] = ~0u;
-      iout[j] = ~0u;
-      wout[j] = lowest;
-    }
-  }
   const long long lo = chunk * kChunk;
   const long long hi = lo + kChunk < n ? lo + kChunk : n;
   if (lo >= hi) return;
-  const uint32_t T = s.prefix[row];
-  const uint32_t need = s.need[row];
-  const uint32_t first_tie = kept - need;   // the winners' slots come first
-  uint32_t ties = s.tie_base[row * chunks + chunk];
+  const uint32_t b = s.prefix[row];
+  const bool buffered = s.bucket[row] <= s.cap;
   const uint32_t* in = keys + row * len;
-  for (long long base = lo; base < hi; base += kStep) {
-    const long long i0 = base + threadIdx.x * kGatherItems;
-    uint32_t u[kGatherItems];
-    if (wide && i0 + kGatherItems <= hi) {
-      const uint4* v = reinterpret_cast<const uint4*>(in + i0);
-      uint4 q[kGatherItems / 4];
+  uint32_t* kout = keys_out + row * out_len;
+  uint32_t* iout = index_out + row * out_len;
+  uint32_t* wout = words_out + row * out_len;
+  uint32_t* bw = s.buf_words + row * s.cap;
+  uint32_t* bi = s.buf_index + row * s.cap;
+  const int lane = threadIdx.x & 31;
+  const long long steps = (hi - lo + kWarpStep - 1) / kWarpStep;
+  // item 4q + e of a lane sits at base + 128q + 4 lane + e: each of its
+  // four loads is 512 contiguous bytes across the warp
+  auto off = [&](int j) { return (j >> 2) * 128 + lane * 4 + (j & 3); };
+  auto at = [&](long long base, int j) { return base + off(j); };
+  auto load = [&](long long base, uint32_t (&u)[kItems]) {
+    if (wide && base + kWarpStep <= hi) {
+      const uint4* v = reinterpret_cast<const uint4*>(in + base) + lane;
+      uint4 q[kItems / 4];
 #pragma unroll
-      for (int j = 0; j < kGatherItems / 4; ++j) q[j] = __ldg(v + j);
+      for (int j = 0; j < kItems / 4; ++j) q[j] = __ldg(v + 32 * j);
 #pragma unroll
-      for (int j = 0; j < kGatherItems / 4; ++j) {
+      for (int j = 0; j < kItems / 4; ++j) {
         u[4 * j] = q[j].x, u[4 * j + 1] = q[j].y;
         u[4 * j + 2] = q[j].z, u[4 * j + 3] = q[j].w;
       }
     } else {
 #pragma unroll
-      for (int j = 0; j < kGatherItems; ++j) {
-        u[j] = i0 + j < hi ? __ldg(in + i0 + j) : 0u;
+      for (int j = 0; j < kItems; ++j) {
+        u[j] = at(base, j) < hi ? __ldg(in + at(base, j)) : 0u;
       }
     }
-    uint32_t wins = 0, tied = 0;
+  };
+  // the next step's words are in flight while this step's slots are
+  // taken (an atomic's round trip) and written
+  uint32_t u[kItems], next[kItems];
+  long long st = threadIdx.x >> 5;
+  if (st < steps) load(lo + st * kWarpStep, next);
+  for (; st < steps; st += kWarps) {
+    const long long base = lo + st * kWarpStep;
 #pragma unroll
-    for (int j = 0; j < kGatherItems; ++j) {
+    for (int j = 0; j < kItems; ++j) u[j] = next[j];
+    if (st + kWarps < steps) load(base + kWarps * kWarpStep, next);
+    const long long left = hi - base;
+    const int rem = left < kWarpStep ? static_cast<int>(left) : kWarpStep;
+    uint32_t wins = 0, cands = 0;   // bit j: item j is one
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
       u[j] = map.encode(u[j]);
-      const bool ok = i0 + j < hi;
-      wins += ok && u[j] < T;
-      tied += ok && u[j] == T;
+      const uint32_t d = u[j] >> kTopShift;
+      const bool ok = off(j) < rem;
+      wins |= static_cast<uint32_t>(ok && d < b) << j;
+      cands |= static_cast<uint32_t>(ok && buffered && d == b) << j;
     }
-    if (!__syncthreads_or(wins | tied)) continue;
-    const uint32_t packed = wins | (tied << 16);
-    const uint32_t ex = block_exclusive_scan(packed, warp_sums);
-    if (threadIdx.x == kThreads - 1) {
-      const uint32_t sum = ex + packed;
-      step_base = (sum & 0xffffu) ? atomicAdd(s.taken + row, sum & 0xffffu)
-                                  : 0u;
-      step_ties = sum >> 16;
+    const uint32_t packed = __popc(wins) | (__popc(cands) << 16);
+    const uint32_t incl = warp_inclusive_scan(packed, lane);
+    const uint32_t total = __shfl_sync(kFull, incl, 31);
+    if (total == 0) continue;
+    unsigned long long old = 0;
+    if (lane == 31) {
+      old = atomicAdd(s.taken + row,
+                      static_cast<unsigned long long>(total & 0xffffu) |
+                          (static_cast<unsigned long long>(total >> 16)
+                           << 32));
     }
-    __syncthreads();
-    uint32_t win_slot = step_base + (ex & 0xffffu);
-    uint32_t tie_rank = ties + (ex >> 16);
+    old = __shfl_sync(kFull, old, 31);
+    const uint32_t ex = incl - packed;
+    uint32_t win_slot = static_cast<uint32_t>(old) + (ex & 0xffffu);
+    uint32_t buf_slot = static_cast<uint32_t>(old >> 32) + (ex >> 16);
+    // a lane walks its own few hits (a store a stream each), not all its
+    // items: predicated stores for every item would crowd the load and
+    // store units
+    for (uint32_t hits = wins | cands; hits != 0; hits &= hits - 1) {
+      const int j = __ffs(hits) - 1;
+      uint32_t v = u[0];
 #pragma unroll
-    for (int j = 0; j < kGatherItems; ++j) {
-      if (i0 + j >= hi) continue;
-      const uint32_t at = static_cast<uint32_t>(i0 + j);
-      if (u[j] < T) {
-        kout[win_slot] = u[j];
-        iout[win_slot] = at;
-        wout[win_slot] = map.decode(u[j]);
+      for (int q = 1; q < kItems; ++q) v = q == j ? u[q] : v;
+      const uint32_t i = static_cast<uint32_t>(at(base, j));
+      if ((wins >> j) & 1u) {   // below the row's kept count by K13's pick
+        kout[win_slot] = v;
+        iout[win_slot] = i;
+        wout[win_slot] = map.decode(v);
         ++win_slot;
-      } else if (u[j] == T) {
-        if (tie_rank < need) {
-          kout[first_tie + tie_rank] = u[j];
-          iout[first_tie + tie_rank] = at;
-          wout[first_tie + tie_rank] = map.decode(u[j]);
-        }
-        ++tie_rank;
+      } else {                  // below the bucket's size <= cap
+        bw[buf_slot] = v;
+        bi[buf_slot] = i;
+        ++buf_slot;
       }
     }
-    ties += step_ties;
+  }
+}
+
+// --- K15: the rest of each row's select, on its buffer -------------------
+
+constexpr int kBatch = 8;   // K15: entries a thread loads at once
+
+// Calls f(u, index, live) on every entry of a row's source, kBatch a
+// thread at a time so that their loads are in flight together; every
+// thread makes the same calls (live: the entry exists and is counted).
+template <class Entry, class F>
+__device__ __forceinline__ void for_entries(const Entry& entry,
+                                            long long size, const F& f) {
+  for (long long j0 = 0; j0 < size; j0 += kThreads * kBatch) {
+    uint32_t u[kBatch], at[kBatch];
+    bool live[kBatch];
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const long long j = j0 + q * kThreads + threadIdx.x;
+      u[q] = at[q] = 0;
+      live[q] = j < size && entry(j, u[q], at[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) f(u[q], at[q], live[q]);
+  }
+}
+
+// Counts digit_of(u, index) (kBins for none) over the entries of the row's
+// source into hist, then picks the bin that holds the need-th; every
+// thread gets the pick.
+template <class Entry, class Digit>
+__device__ __forceinline__ Pick select_digit(const Entry& entry,
+                                             long long size,
+                                             const Digit& digit_of,
+                                             uint32_t need, uint32_t* hist,
+                                             uint32_t* warp_sums,
+                                             Pick* chosen) {
+  for (int i = threadIdx.x; i < kBins; i += kThreads) hist[i] = 0;
+  __syncthreads();
+  for_entries(entry, size, [&](uint32_t u, uint32_t at, bool live) {
+    const uint32_t d = live ? digit_of(u, at) : kBins;
+    if (d < kBins) atomicAdd(hist + d, 1u);
+  });
+  __syncthreads();
+  uint32_t c[kBinsAThread];
+#pragma unroll
+  for (int j = 0; j < kBinsAThread; ++j) {
+    c[j] = hist[kBinsAThread * threadIdx.x + j];
+  }
+  Pick p;
+  if (pick_bin(c, need, warp_sums, &p)) *chosen = p;
+  __syncthreads();
+  return *chosen;
+}
+
+// six CTAs an SM: a row's CTA is a chain of short dependent phases, so
+// more rows in flight hide them
+__global__ void __launch_bounds__(kThreads, 6)
+    topk_rows_buffer_select_kernel(const uint32_t* __restrict__ keys,
+                                   long long len, const int* lengths,
+                                   KeyMap map, uint32_t k, Rows s,
+                                   uint32_t* __restrict__ keys_out,
+                                   uint32_t* __restrict__ index_out,
+                                   uint32_t* __restrict__ words_out,
+                                   long long out_len, uint32_t lowest,
+                                   unsigned long long* counted) {
+  __shared__ uint32_t hist[kBins];
+  __shared__ uint32_t warp_sums[kWarps];
+  __shared__ Pick chosen;
+  __shared__ uint32_t slots[2];   // the bucket's winners and ties written
+  const long long row = blockIdx.x;
+  const long long n = row_length(lengths, row, len);
+  const uint32_t kept = kept_of(k, n);
+  uint32_t* kout = keys_out + row * out_len;
+  uint32_t* iout = index_out + row * out_len;
+  uint32_t* wout = words_out + row * out_len;
+  for (long long j = kept + threadIdx.x; j < out_len; j += kThreads) {
+    kout[j] = ~0u;   // the slots past the kept keys sort last
+    iout[j] = ~0u;
+    wout[j] = lowest;
+  }
+  const uint32_t size_b = s.bucket[row];
+  const bool buffered = size_b <= s.cap;
+  if (counted != nullptr && threadIdx.x == 0) {
+    atomicAdd(counted, buffered ? 1ull : 0ull);
+    atomicAdd(counted + 1, 1ull);
+  }
+  if (kept == 0) return;
+  const uint32_t top = s.prefix[row];
+  const uint32_t* in = keys + row * len;
+  const uint32_t* bw = s.buf_words + row * s.cap;
+  const uint32_t* bi = s.buf_index + row * s.cap;
+  // entry j of the row's source: its buffer, or where that could not hold
+  // the bucket, the row (whose keys outside the bucket are skipped)
+  const long long size = buffered ? size_b : n;
+  auto entry = [&](long long j, uint32_t& u, uint32_t& at) {
+    if (buffered) {
+      u = bw[j];
+      at = bi[j];
+      return true;
+    }
+    u = map.encode(__ldg(in + j));
+    at = static_cast<uint32_t>(j);
+    return (u >> kTopShift) == top;
+  };
+  const Pick mid = select_digit(
+      entry, size,
+      [](uint32_t u, uint32_t) { return (u >> kLowBits) & (kBins - 1); },
+      s.need[row], hist, warp_sums, &chosen);
+  const uint32_t high = (top << kMidBits) | mid.digit;   // bits 10..31
+  const Pick low = select_digit(
+      entry, size,
+      [high](uint32_t u, uint32_t) {
+        return (u >> kLowBits) == high ? u & ((1u << kLowBits) - 1)
+                                       : static_cast<uint32_t>(kBins);
+      },
+      mid.need, hist, warp_sums, &chosen);
+  const uint32_t T = (high << kLowBits) | low.digit;
+  const uint32_t ties = low.need;   // ties kept, of low.count in the row
+  // where the row holds more ties than it keeps: the index of the last
+  // kept one, a radix select over the ties' indices (n >= 2 here)
+  uint32_t last_tie = ~0u;
+  if (low.count > ties) {
+    int hi_bit = 32 - __clz(static_cast<uint32_t>(n - 1));
+    uint32_t got = 0, need = ties;
+    while (hi_bit > 0) {
+      const int w = hi_bit < kTopBits ? hi_bit : kTopBits;
+      const int sh = hi_bit - w;
+      const Pick p = select_digit(
+          entry, size,
+          [=](uint32_t u, uint32_t at) {
+            return u == T && (at >> hi_bit) == got
+                       ? (at >> sh) & ((1u << w) - 1)
+                       : static_cast<uint32_t>(kBins);
+          },
+          need, hist, warp_sums, &chosen);
+      got = (got << w) | p.digit;
+      need = p.need;
+      hi_bit = sh;
+    }
+    last_tie = got;
+  }
+  // the bucket's winners after K14's; the kept ties after all winners
+  if (threadIdx.x == 0) slots[0] = slots[1] = 0;
+  __syncthreads();
+  const uint32_t first_win = static_cast<uint32_t>(s.taken[row]);
+  const uint32_t first_tie = kept - ties;
+  const int lane = threadIdx.x & 31;
+  const uint32_t below = (1u << lane) - 1u;
+  for_entries(entry, size, [&](uint32_t u, uint32_t at, bool live) {
+    const bool win = live && u < T;
+    const bool tie = live && u == T && at <= last_tie;
+    const uint32_t wm = __ballot_sync(kFull, win);
+    const uint32_t tm = __ballot_sync(kFull, tie);
+    if ((wm | tm) == 0) return;
+    uint32_t wb = 0, tb = 0;
+    if (lane == 0) {
+      if (wm) wb = atomicAdd(slots, __popc(wm));
+      if (tm) tb = atomicAdd(slots + 1, __popc(tm));
+    }
+    wb = __shfl_sync(kFull, wb, 0);
+    tb = __shfl_sync(kFull, tb, 0);
+    uint32_t slot = 0;
+    if (win) slot = first_win + wb + __popc(wm & below);
+    if (tie) slot = first_tie + tb + __popc(tm & below);
+    if (win || tie) {
+      kout[slot] = u;
+      iout[slot] = at;
+      wout[slot] = map.decode(u);
+    }
+  });
+  if (threadIdx.x == 0) {
+    s.need[row] = ties;
+    s.prefix[row] = T;
   }
 }
 
@@ -314,34 +536,43 @@ long long pad32(long long n) { return (n + 31) / 32 * 32; }
 
 long long chunks_of(long long len) { return (len + kChunk - 1) / kChunk; }
 
+// a row's candidate buffer: a sixteenth of the row, at least kMinBuffer
+// keys and at most the row
+long long buffer_cap(long long len) {
+  const long long sixteenth = (len + 15) / 16;
+  const long long cap = sixteenth > kMinBuffer ? sixteenth : kMinBuffer;
+  return cap < len ? cap : len;
+}
+
 // The parts of the scratch (null pointers for a null scratch); returns its
-// words, the first `zeroed` of which round 0's entry zeroes.
+// words, the first `zeroed` of which K13's entry zeroes.
 long long layout(void* scratch, long long rows, long long len, Rows* s,
                  long long* zeroed) {
   auto* w = static_cast<uint32_t*>(scratch);
-  const long long chunks = chunks_of(len);
   long long at = 0;
   auto take = [&](long long words) {
     uint32_t* p = w ? w + at : nullptr;
     at += pad32(words);
     return p;
   };
-  s->counts = take(rows * kRadix);
+  s->cap = buffer_cap(len);
+  s->counts = take(rows * kBins);
   s->tickets = take(rows);
-  s->taken = take(rows);
+  s->taken = reinterpret_cast<unsigned long long*>(take(2 * rows));
   *zeroed = at;
   s->need = take(rows);
   s->prefix = take(rows);
-  s->tie_base = take(rows * chunks);
-  s->chunk_counts = take(rows * chunks * kRadix);
+  s->bucket = take(rows);
+  s->buf_words = take(rows * s->cap);
+  s->buf_index = take(rows * s->cap);
   return at;
 }
 
 bool valid_call(long long rows, long long len, int kind, long long k,
                 long long scratch_words, KeyMap* map, Rows* s,
                 long long* zeroed) {
-  return rows > 0 && len > 0 && len < (1LL << 31) && k > 0 &&
-         k < (1LL << 31) && rows * chunks_of(len) < (1LL << 31) &&
+  return rows > 0 && rows < (1LL << 31) && len > 0 && len < (1LL << 31) &&
+         k > 0 && k < (1LL << 31) && rows * chunks_of(len) < (1LL << 31) &&
          make_map(kind, map) &&
          layout(nullptr, rows, len, s, zeroed) <= scratch_words;
 }
@@ -350,65 +581,51 @@ bool valid_call(long long rows, long long len, int kind, long long k,
 
 // keys: rows x len words, row-major; lengths: rows int32 (null: every row
 // len long; each clamped to [0, len]); kind: 0 u32, 1 i32, 2 f32 (the order
-// map); k: the keys kept a row (> 0); round: 0..3, the digit at bit 24 - 8
-// round. scratch: scratch_words words laid out as `layout` says: the counts
-// (rows x 256), tickets and winner counters, zeroed on the stream by round
-// 0's entry; then each row's need and prefix, its chunks' tie bases and the
-// last round's chunk counts. After round 3 a row's prefix is its k-th
-// largest key's word and need the number of its ties to keep.
+// map); k: the keys kept a row (> 0). scratch: scratch_words words laid out
+// as `layout` says: the counts (rows x 2048), tickets and the rows' 64-bit
+// counters, zeroed on the stream here; then each row's need, prefix and
+// bucket size, and the candidate buffers (rows x cap words and indices).
+// After K13 a row's prefix is its bucket (the top 11 bits of its k-th
+// largest key's word), need the words still to take in it and bucket its
+// keys.
 extern "C" int sortx_topk_rows_histogram(const void* keys, long long rows,
                                          long long len, const void* lengths,
-                                         int kind, long long k, int round,
-                                         void* scratch,
+                                         int kind, long long k, void* scratch,
                                          long long scratch_words,
                                          void* stream) {
   KeyMap map;
   Rows s;
   long long zeroed = 0;
-  if (round < 0 || round > 3 ||
-      !valid_call(rows, len, kind, k, scratch_words, &map, &s, &zeroed)) {
+  if (!valid_call(rows, len, kind, k, scratch_words, &map, &s, &zeroed)) {
     return cudaErrorInvalidValue;
   }
   layout(scratch, rows, len, &s, &zeroed);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (round == 0) {
-    const cudaError_t err = cudaMemsetAsync(
-        scratch, 0, static_cast<size_t>(zeroed) * sizeof(uint32_t), st);
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t err = cudaMemsetAsync(
+      scratch, 0, static_cast<size_t>(zeroed) * sizeof(uint32_t), st);
+  if (err != cudaSuccess) return err;
   const long long chunks = chunks_of(len);
-  const auto* in = static_cast<const uint32_t*>(keys);
-  const auto* ln = static_cast<const int*>(lengths);
   const int wide = len % 4 == 0 && reinterpret_cast<uintptr_t>(keys) % 16 == 0;
-  const unsigned grid = static_cast<unsigned>(rows * chunks);
-  const int shift = 24 - 8 * round;
-  const auto kk = static_cast<uint32_t>(k);
-  const int c = static_cast<int>(chunks);
-  if (round == 0) {
-    topk_rows_histogram_kernel<false, false><<<grid, kThreads, 0, st>>>(
-        in, len, ln, c, wide, map, kk, shift, s);
-  } else if (round < 3) {
-    topk_rows_histogram_kernel<true, false><<<grid, kThreads, 0, st>>>(
-        in, len, ln, c, wide, map, kk, shift, s);
-  } else {
-    topk_rows_histogram_kernel<true, true><<<grid, kThreads, 0, st>>>(
-        in, len, ln, c, wide, map, kk, shift, s);
-  }
+  topk_rows_histogram_kernel<<<static_cast<unsigned>(rows * chunks),
+                               kThreads, 0, st>>>(
+      static_cast<const uint32_t*>(keys), len,
+      static_cast<const int*>(lengths), static_cast<int>(chunks), wide, map,
+      static_cast<uint32_t>(k), s);
   return cudaGetLastError();
 }
 
-// After the four rounds: each row's min(k, lengths[r]) largest keys, as
-// their mapped words into keys_out, their in-row indices into index_out and
-// the caller's own words into words_out (rows of out_len >= k words; the
-// winners in the first slots in no set order, then the ties in row order;
-// each row's later slots 0xFFFFFFFF, 0xFFFFFFFF and `lowest`).
+// After K13: each row's keys above its bucket (its certain winners) into
+// the first slots of keys_out (mapped words), index_out (in-row indices)
+// and words_out (the caller's words), rows of out_len >= k words, in no set
+// order; and, where the bucket fits the row's buffer, the bucket's keys
+// (mapped word and index) into it, in no set order. The row's 64-bit
+// counter ends at winners | buffered keys << 32.
 extern "C" int sortx_topk_rows_gather(const void* keys, long long rows,
                                       long long len, const void* lengths,
                                       int kind, long long k, void* scratch,
                                       long long scratch_words, void* keys_out,
                                       void* index_out, void* words_out,
-                                      long long out_len, int lowest,
-                                      void* stream) {
+                                      long long out_len, void* stream) {
   KeyMap map;
   Rows s;
   long long zeroed = 0;
@@ -423,8 +640,38 @@ extern "C" int sortx_topk_rows_gather(const void* keys, long long rows,
                             0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(keys), len,
       static_cast<const int*>(lengths), static_cast<int>(chunks), wide, map,
-      static_cast<uint32_t>(k), s, static_cast<uint32_t*>(keys_out),
-      static_cast<uint32_t*>(index_out), static_cast<uint32_t*>(words_out),
-      out_len, static_cast<uint32_t>(lowest));
+      s, static_cast<uint32_t*>(keys_out), static_cast<uint32_t*>(index_out),
+      static_cast<uint32_t*>(words_out), out_len);
+  return cudaGetLastError();
+}
+
+// After K14: the rest of each row's min(k, lengths[r]) largest keys into
+// the outputs (the bucket's winners after K14's, then the kept ties, in no
+// set order) and each row's later slots 0xFFFFFFFF, 0xFFFFFFFF and
+// `lowest`. A row's prefix ends as its k-th largest key's word and need as
+// the number of its ties kept. counted: null, or two 64-bit counters that
+// each row adds to: 1 where its later rounds and gather read its buffer
+// alone, and 1.
+extern "C" int sortx_topk_rows_buffer_select(
+    const void* keys, long long rows, long long len, const void* lengths,
+    int kind, long long k, void* scratch, long long scratch_words,
+    void* keys_out, void* index_out, void* words_out, long long out_len,
+    int lowest, void* counted, void* stream) {
+  KeyMap map;
+  Rows s;
+  long long zeroed = 0;
+  if (out_len < k ||
+      !valid_call(rows, len, kind, k, scratch_words, &map, &s, &zeroed)) {
+    return cudaErrorInvalidValue;
+  }
+  layout(scratch, rows, len, &s, &zeroed);
+  topk_rows_buffer_select_kernel<<<static_cast<unsigned>(rows), kThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(keys), len,
+      static_cast<const int*>(lengths), map, static_cast<uint32_t>(k), s,
+      static_cast<uint32_t*>(keys_out), static_cast<uint32_t*>(index_out),
+      static_cast<uint32_t*>(words_out), out_len,
+      static_cast<uint32_t>(lowest),
+      static_cast<unsigned long long*>(counted));
   return cudaGetLastError();
 }

@@ -86,13 +86,16 @@ _ENTRIES = {
     #  descending, offsets, region, region_words, stream)
     "sortx_radix_rows_onesweep": (_P, _P, _P, _P, _L, _L, _I, _I, _I, _P,
                                   _P, _L, _P),
-    # (keys, rows, len, lengths, kind, k, round, scratch, scratch_words,
-    #  stream)
-    "sortx_topk_rows_histogram": (_P, _L, _L, _P, _I, _L, _I, _P, _L, _P),
+    # (keys, rows, len, lengths, kind, k, scratch, scratch_words, stream)
+    "sortx_topk_rows_histogram": (_P, _L, _L, _P, _I, _L, _P, _L, _P),
     # (keys, rows, len, lengths, kind, k, scratch, scratch_words, keys_out,
-    #  index_out, words_out, out_len, lowest, stream)
+    #  index_out, words_out, out_len, stream)
     "sortx_topk_rows_gather": (_P, _L, _L, _P, _I, _L, _P, _L, _P, _P, _P,
-                               _L, _I, _P),
+                               _L, _P),
+    # (keys, rows, len, lengths, kind, k, scratch, scratch_words, keys_out,
+    #  index_out, words_out, out_len, lowest, counted, stream)
+    "sortx_topk_rows_buffer_select": (_P, _L, _L, _P, _I, _L, _P, _L, _P, _P,
+                                      _P, _L, _I, _P, _P),
 }
 
 

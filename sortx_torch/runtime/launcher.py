@@ -42,8 +42,8 @@ kernels:
   - ``driver.bitonic``: the pass plan and its loop (``ops/bitonic.py``);
     ``driver.radix``: the radix engine's scratch and pass loop
     (``ops/radix.py``); ``driver.radix_rows``: the rows' radix engine's
-    K11 and pass loop (``ops/radix_rows.py``); ``driver.topk_rows``: the
-    four K13 rounds, K14 and the row sort (``ops/topk_rows.py``);
+    K11 and pass loop (``ops/radix_rows.py``); ``driver.topk_rows``: K13,
+    K14, K15 and the row sort (``ops/topk_rows.py``);
   - ``launch.<kernel>``: each kernel launch (``ops/_build.py:launch``);
   - ``dist.<step>``: each step of the distributed sort
     (:func:`profiled_step`), whose times on the card are kept as a

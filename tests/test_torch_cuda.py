@@ -1727,7 +1727,7 @@ def test_radix_rows_capture_and_replay(dev):
         assert _same_tree(out, run(static, NETWORK)), kind
 
 
-# --- top_k_rows: K13 and K14 ----------------------------------------------
+# --- top_k_rows: K13, K14 and K15 ----------------------------------------
 
 DSA_REF = spec.load_module(Path(__file__).resolve().parents[1] / "portbench" /
                            "reference" / "dsa_topk.py")
@@ -1744,6 +1744,8 @@ def _topk_keys(kind, shape, dev, seed):
     if kind == "crowded":      # every key in one bucket of 24 bits
         return 1.0 + torch.randint(0, 4, shape, generator=g,
                                    device=dev) * 2.0**-23
+    if kind == "three values":   # low entropy: the rows' buckets overflow
+        return torch.randint(0, 3, shape, generator=g, device=dev).float()
     return torch.full(shape, -7, dtype=torch.int32, device=dev)
 
 
@@ -1751,14 +1753,23 @@ TOPK_SHAPES = [(6, 40_000, 2048), (3, 100_003, 64), (5, 5000, 5000),
                (300, 3000, 17)]
 
 
-@pytest.mark.parametrize("kind", ["f32", "tied u32", "crowded", "equal i32"])
+def _by_index(out: torch.Tensor) -> torch.Tensor:
+    """Three [R, m] output streams with each row's slots in index order
+    (the kernels' slots come in the order their warps take them)."""
+    order = torch.sort(out[1], dim=1).indices
+    return torch.stack([t.gather(1, order) for t in out])
+
+
+@pytest.mark.parametrize("kind", ["f32", "tied u32", "crowded", "equal i32",
+                                  "three values"])
 @pytest.mark.parametrize("shape", TOPK_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
 def test_topk_rows_kernels_match_plain(dev, shape, kind):
-    """Each K13 round's row state and K14's kept slots (each row's indices,
-    mapped words and own words, compared in index order) against their
-    plain versions, lengths of L, 0, 1, k and random; then the whole op
-    against its plain path on CPU copies."""
+    """K13's row state, K14's counters, winners and buffer, and K15's row
+    state and kept slots (each row's compared in index order) against
+    their plain versions, lengths of L, 0, 1, k and random, buffered and
+    fallen-back rows alike; then the whole op against its plain path on
+    CPU copies."""
     from sortx_torch.ops import topk_rows as tr
     from sortx_torch.ops.radix_rows import key_words
     R, L, k = shape
@@ -1770,20 +1781,27 @@ def test_topk_rows_kernels_match_plain(dev, shape, kind):
     w, kd, _ = key_words(keys)
     s1 = torch.empty(tr.scratch_words(R, L), dtype=torch.int32, device=dev)
     s2 = torch.empty_like(s1)
-    for p in range(tr.ROUNDS):
-        a = tr.topk_rows_histogram(w, lengths, kd, k, p, s1)
-        b = tr.histogram_round_plain(w, lengths, kd, k, p, s2)
-        torch.cuda.synchronize()
-        assert torch.equal(a, b), p
-    outs = [torch.empty((3, R, k), dtype=torch.int32, device=dev)
+    a = tr.topk_rows_histogram(w, lengths, kd, k, s1)
+    b = tr.histogram_plain(w, lengths, kd, k, s2)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    outs = [torch.zeros((3, R, k), dtype=torch.int32, device=dev)
             for _ in range(2)]
-    tr.topk_rows_gather(w, lengths, kd, k, -5, s1, *outs[0])
-    tr.gather_plain(w, lengths, kd, k, -5, s2, *outs[1])
-    got, want = (torch.sort(o[1], dim=1) for o in outs)   # by index
-    assert torch.equal(got.values, want.values)
-    for t in (0, 2):   # the mapped and the caller's words follow
-        assert torch.equal(outs[0][t].gather(1, got.indices),
-                           outs[1][t].gather(1, want.indices)), t
+    tr.topk_rows_gather(w, lengths, kd, k, s1, *outs[0])
+    tr.gather_plain(w, lengths, kd, k, s2, *outs[1])
+    taken = tr.row_taken(s2, R, L)
+    assert torch.equal(tr.row_taken(s1, R, L), taken)
+    for r in range(R):
+        wins, kept = int(taken[r, 0]), int(taken[r, 1])
+        assert torch.equal(*(_by_index(o[:, r:r + 1, :wins]) for o in outs))
+        bufs = [torch.stack(tr.row_buffer(s, R, L))[[0, 1, 0], r:r + 1,
+                                                    :kept] for s in (s1, s2)]
+        assert torch.equal(*(_by_index(t) for t in bufs)), r
+    tr.topk_rows_buffer_select(w, lengths, kd, k, -5, s1, *outs[0])
+    tr.buffer_select_plain(w, lengths, kd, k, -5, s2, *outs[1])
+    torch.cuda.synchronize()
+    assert torch.equal(tr.row_state(s1, R, L), tr.row_state(s2, R, L))
+    assert torch.equal(*(_by_index(o) for o in outs))
     eager = sortx_torch.top_k_rows(keys, k, lengths=lengths)
     plain = sortx_torch.top_k_rows(keys.cpu(), k, lengths=lengths.cpu())
     assert _same_tree(tuple(t.cpu() for t in eager), plain)
@@ -1792,8 +1810,10 @@ def test_topk_rows_kernels_match_plain(dev, shape, kind):
 def test_top_k_rows_at_the_indexer_shape(dev):
     """The indexer cell's call (4096 causal rows of 126,977 to 131,072
     float32 scores, +inf past each row, k = 2048) against the plain
-    reference bit for bit: four K13, one K14, one network pass, and a
-    traced call of a memset and those six kernels, nothing else."""
+    reference bit for bit: one K13, one K14, one K15 that finishes every
+    row on its buffer, one network pass, and a traced call of a memset
+    and those four kernels, nothing else."""
+    from sortx_torch.ops import topk_rows as tr
     rows, context, k = 4096, 131_072, 2048
     n = int(DSA_REF.row_lengths(rows, context).sum())
     g = torch.Generator(device=dev).manual_seed(21)
@@ -1802,10 +1822,14 @@ def test_top_k_rows_at_the_indexer_shape(dev):
     scores, lengths = DSA_REF.causal_scores(words, rows, context)
     del words
     launches.clear()
+    before = tr.buffer_counts(dev)
     got = sortx_torch.top_k_rows(scores, k, lengths=lengths)
     torch.cuda.synchronize()
-    assert dict(launches) == {"topk_rows_histogram": 4,
-                              "topk_rows_gather": 1, "bitonic_block": 1}
+    after = tr.buffer_counts(dev)
+    assert dict(launches) == {"topk_rows_histogram": 1, "topk_rows_gather": 1,
+                              "topk_rows_buffer_select": 1,
+                              "bitonic_block": 1}
+    assert (after[0] - before[0], after[1] - before[1]) == (rows, rows)
     assert _same_tree(got, DSA_REF.top_k_rows(scores, lengths, k))
 
     def call():
@@ -1814,14 +1838,19 @@ def test_top_k_rows_at_the_indexer_shape(dev):
     sl = tracing.record(call, calls=1, warm=1)
     names = [tracing.kernel_name(n) for *_, n in sorted(sl.device)]
     assert names[0].startswith("Memset")
-    assert names[1:] == ["topk_rows_histogram_kernel"] * 4 + [
-        "topk_rows_gather_kernel", "bitonic_block_kernel"]
+    assert names[1:] == ["topk_rows_histogram_kernel",
+                         "topk_rows_gather_kernel",
+                         "topk_rows_buffer_select_kernel",
+                         "bitonic_block_kernel"]
 
 
 def test_top_k_rows_capture_and_replay(dev):
     """top_k_rows captured once into a CUDA graph and replayed on new
-    scores and lengths, tied rows and all-equal rows: each replay equals
-    the plain path's eager call."""
+    scores and lengths, tied rows, all-equal rows and three-valued rows
+    (their buckets outgrow the buffer, so K15 reads the rows again): each
+    replay equals the plain path's eager call, and no replay counts
+    rows."""
+    from sortx_torch.ops import topk_rows as tr
     R, L, k = 64, 20_000, 300
     static = {"k": torch.randn(R, L, device=dev),
               "n": torch.full((R,), L, dtype=torch.int32, device=dev)}
@@ -1838,11 +1867,13 @@ def test_top_k_rows_capture_and_replay(dev):
     with torch.cuda.graph(graph):
         out = run(static)
     g = torch.Generator(device=dev).manual_seed(5)
-    for kind in ("f32", "tied u32", "equal i32"):
+    for kind in ("f32", "tied u32", "equal i32", "three values"):
         keys = _topk_keys(kind, (R, L), dev, seed=9).view(torch.float32)
         static["k"].copy_(keys)
         static["n"].copy_(torch.randint(0, L + 1, (R,), generator=g,
                                         device=dev, dtype=torch.int32))
+        counts = tr.buffer_counts(dev)
         graph.replay()
         torch.cuda.synchronize()
+        assert tr.buffer_counts(dev) == counts, kind
         assert _same_tree(out, run(static, NETWORK)), kind

@@ -34,6 +34,7 @@ from portbench import spec
 from sortx_torch.convert import to_numpy, to_torch
 from sortx_torch.ops import topk_rows as tr
 from sortx_torch.ops.radix_rows import encode_plain, key_words
+from sortx_torch.utils.words import as_u64
 
 REF = spec.load_module(Path(__file__).resolve().parents[1] / "portbench" /
                        "reference" / "dsa_topk.py")
@@ -239,23 +240,116 @@ def test_what_the_op_refuses(bad):
 
 
 def test_the_rounds_and_the_gather_keep_the_kernels_state():
-    """The plain K13's row state after each round (need, prefix) narrows
-    to the k-th key's word and its ties to keep; K14's plain version puts
-    the winners first, then the kept ties in row order, each with its
-    mapped word, index and own word; the later slots sort last."""
+    """The plain K13's row state (need, bucket, its size), K14's counters
+    and buffer (here the whole row: every key shares its top 11 bits),
+    then K15's state narrowed to the k-th key's word and its ties to
+    keep; the winners first, then the kept ties, each with its mapped
+    word, index and own word; the later slots sort last."""
     keys = torch.tensor([[5, 9, 7, 9, 9, 1, 9, 3]], dtype=torch.int32)
     w, kind, _ = key_words(keys)
+    enc = encode_plain(w, kind, True)
+    t = int(enc[0, 2])                                # the word of 7
     scratch = torch.empty(tr.scratch_words(1, 8), dtype=torch.int32)
-    for p in range(tr.ROUNDS):
-        state = tr.topk_rows_histogram(w, None, kind, 5, p, scratch)
-    t = int(encode_plain(torch.tensor([7], dtype=torch.int32), kind,
-                         True)[0])
-    assert state[1, 0] == t and state[0, 0] == 1   # 9 9 9 9 then one 7
+    state = tr.topk_rows_histogram(w, None, kind, 5, scratch)
+    assert state[:, 0].tolist() == [5, (t & 0xFFFFFFFF) >> 21, 8]
     out = torch.empty((3, 1, 8), dtype=torch.int32)
-    tr.topk_rows_gather(w, None, kind, 5, -77, scratch, *out)
+    tr.topk_rows_gather(w, None, kind, 5, scratch, *out)
+    assert tr.row_taken(scratch, 1, 8).tolist() == [[0, 8]]
+    words, index = tr.row_buffer(scratch, 1, 8)
+    assert torch.equal(words, enc) and index[0].tolist() == list(range(8))
+    tr.topk_rows_buffer_select(w, None, kind, 5, -77, scratch, *out)
+    assert state[1, 0] == t and state[0, 0] == 1   # 9 9 9 9 then one 7
     assert out[1, 0].tolist() == [1, 3, 4, 6, 2, -1, -1, -1]
     assert out[2, 0].tolist() == [9, 9, 9, 9, 7, -77, -77, -77]
     assert (out[0, 0, 5:] == -1).all()
+
+
+def _bucket_row(rng, L: int, bucket: int, above: int) -> torch.Tensor:
+    """A row of L float32 keys: ``above`` in [4, 8), ``bucket`` distinct
+    ones in [1, 1.25) (one bucket of K13's 11-bit digit) and the rest in
+    [0, 0.5), in random order."""
+    x = np.concatenate([rng.uniform(4, 8, above),
+                        1 + np.arange(bucket) * 2.0**-23 * 7,
+                        rng.uniform(0, 0.5, L - above - bucket)])
+    return torch.from_numpy(rng.permutation(x).astype(np.float32))
+
+
+def _buffer_case(name: str, rng):
+    """(keys, lengths, k, the rows whose select reads only its buffer)."""
+    L = 20_000
+    cap = tr.buffer_cap(L)                            # 1250
+    if name == "buffered":         # scores spread over many buckets
+        keys = torch.from_numpy(rng.randn(5, L).astype(np.float32) * 3)
+        return keys, None, 300, 5
+    if name.startswith("cap"):     # the k-th key's bucket at cap - 1 ..
+        size = cap + int(name[3:] or 0)
+        keys = torch.stack([_bucket_row(rng, L, size, 100)
+                            for _ in range(3)])
+        return keys, None, 600, 3 if size <= cap else 0
+    if name == "all equal":        # one bucket a row: short rows fit
+        lengths = torch.tensor([L, 0, 1, 700, cap, cap + 1],
+                               dtype=torch.int32)
+        return torch.full((6, L), -1.5), lengths, 700, 4
+    if name == "three values":     # ties at the cut, across every chunk
+        keys = torch.from_numpy(rng.randint(0, 3, (4, 3 * tr.CHUNK)).astype(
+            np.float32))
+        return keys, None, 2048, 0
+    if name == "ties across chunks":   # 16 ties around two chunk edges
+        keys = torch.from_numpy(rng.uniform(0, 1, (3, 40_000)).astype(
+            np.float32))
+        keys[:, rng.choice(40_000, 50, replace=False)] = 5.0
+        ties = np.r_[tr.CHUNK - 4:tr.CHUNK + 4, 2 * tr.CHUNK - 3:
+                     2 * tr.CHUNK + 5]
+        keys[:, ties] = 3.0
+        keys[1, ties[0]] = 3.25       # row 1: a winner inside the bucket
+        return keys, None, 55, 3
+    # rows no longer than k (L <= k): every key kept
+    keys = torch.from_numpy(rng.randn(5, 300).astype(np.float32))
+    lengths = torch.tensor([300, 0, 1, 5, 299], dtype=torch.int32)
+    return keys, lengths, 400, 5
+
+
+BUFFER_CASES = ["buffered", "cap-1", "cap", "cap+1", "all equal",
+                "three values", "ties across chunks", "short rows"]
+
+
+@pytest.mark.parametrize("name", BUFFER_CASES)
+def test_rows_read_their_buffer_or_fall_back(rng, name):
+    """Rows whose k-th key's bucket fits their buffer finish the select
+    on it; larger buckets (all-equal and three-valued rows, one key past
+    the buffer) read the row again: either way each row equals a stable
+    sort of its mapped words, and the CPU's count of buffered rows grows
+    by the rows that fit."""
+    keys, lengths, k, buffered = _buffer_case(name, rng)
+    before = tr.buffer_counts("cpu")
+    got = sortx_torch.top_k_rows(keys, k, lengths=lengths)
+    after = tr.buffer_counts("cpu")
+    for g, w in zip(got, _by_words(keys, k, lengths)):
+        _same(g, w)
+    assert (after[0] - before[0], after[1] - before[1]) == (
+        buffered, keys.shape[0])
+
+
+@pytest.mark.parametrize("name", ["buffered", "ties across chunks"])
+def test_winners_above_the_bucket_come_from_the_full_read(rng, name):
+    """K14's winners are exactly the keys above each row's bucket: its
+    counter, and the kept keys K15 adds after them, split min(k, length)
+    into the two reads' shares."""
+    keys, lengths, k, _ = _buffer_case(name, rng)
+    R, L = keys.shape
+    w, kind, _ = key_words(keys)
+    scratch = torch.empty(tr.scratch_words(R, L), dtype=torch.int32)
+    state = tr.topk_rows_histogram(w, lengths, kind, k, scratch).clone()
+    out = torch.empty((3, R, k), dtype=torch.int32)
+    tr.topk_rows_gather(w, lengths, kind, k, scratch, *out)
+    taken = tr.row_taken(scratch, R, L)
+    top = as_u64(encode_plain(w, kind, True)) >> (32 - tr.TOP_BITS)
+    assert torch.equal(taken[:, 0], (top < state[1][:, None]).sum(1).to(
+        torch.int32))
+    assert torch.equal(taken[:, 1], state[2])        # the bucket, buffered
+    assert (taken[:, 0] > 0).all() and (state[0] > 0).all()
+    assert torch.equal(taken[:, 0] + state[0], torch.full((R,), k).to(
+        torch.int32))
 
 
 def test_the_op_opens_its_spans():
